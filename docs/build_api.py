@@ -1,7 +1,7 @@
 """Generate docs/api_reference.md from live docstrings (autodoc analog).
 
 The reference ships a sphinx tree whose ``api.rst`` autodocs the package
-surface (``/root/reference/docs/api.rst``); this environment has no sphinx,
+surface (reference ``docs/api.rst``); without sphinx,
 so this script renders the same content — every public class with its
 public methods/properties, every public function, full signatures and
 docstrings — to markdown.  Run from the repo root:
@@ -101,7 +101,7 @@ def main():
     buf.write("# Matrix classes\n\n")
     for cname in CLASSES:
         render_class(buf, cname, getattr(tm, cname))
-    buf.write("# GLM estimation (beyond the reference: TPU training loop)\n\n")
+    buf.write("# GLM estimation (beyond the reference: a device training loop)\n\n")
     for fname in GLM:
         obj = getattr(tm, fname)
         if inspect.isclass(obj):

@@ -1,6 +1,6 @@
-"""tabmat-tpu: TPU-native matrix representations for GLM-style tabular data.
+"""tabmat-tpu: matrix representations for GLM-style tabular data, in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 Quantco/tabmat: dense, sparse, categorical, split, and standardized matrix
 types behind a single ``MatrixBase`` API — ``matvec``, ``transpose_matvec``,
 the sandwich product ``Xᵀ diag(d) X``, active-set row/column restriction,
@@ -8,7 +8,8 @@ weighted standardization — plus dataframe/formula constructors.
 
 Compute-path design (see SURVEY.md §7 for the blueprint):
 
-- dense sandwich → MXU contraction with fused diag(d) scaling
+- dense sandwich → one contraction at pinned full precision, with the
+  diag(d) scaling fused by XLA
 - categorical ops → gather / argsort+cumsum segment reductions (no scatter)
 - sparse ops → CSR/CSC boundary-segmented cumsum kernels
 - standardized ops → rank-1 corrections, never densified
@@ -35,7 +36,7 @@ from .formula import from_formula  # noqa: F401,E402
 from .ops.diag import DiagonalResult  # noqa: F401,E402
 from .glm import GeneralizedLinearRegressor, fit_glm  # noqa: F401,E402
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "DenseMatrix",

@@ -1,40 +1,71 @@
 """ctypes loader for the native host helpers (with pure-numpy fallbacks).
 
-The shared library is built by ``build.sh`` (g++ -O3 -fopenmp).  If it is
-missing we attempt one quiet in-place build; failing that, every entry
-point falls back to numpy, so the package works on any host.
+The shared library is compiled from ``segment_helpers.cpp`` on first use
+into ``build/`` beside this file.  Its file name carries a hash of the
+source, the compiler flags and the host, so a library built from other
+sources or on another machine is never loaded: a new key means a fresh
+build.  If the build fails, every entry point falls back to numpy, so the
+package works on any host.
 """
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
-_HERE = os.path.dirname(__file__)
-_LIB_PATH = os.path.join(_HERE, "libtabmat_tpu_native.so")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SOURCE = os.path.join(_HERE, "segment_helpers.cpp")
+_BUILD_DIR = os.path.join(_HERE, "build")
+# portable code generation: no -march=native, the library may be built on
+# one x86-64 host and must still be valid on the next
+_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
+
+
+def library_path() -> str:
+    """Where the library for this source, these flags and this host lives."""
+    key = hashlib.sha256()
+    with open(_SOURCE, "rb") as f:
+        key.update(f.read())
+    key.update(" ".join(_FLAGS).encode())
+    key.update(
+        f"{platform.system()} {platform.machine()} {platform.node()}".encode()
+    )
+    return os.path.join(
+        _BUILD_DIR, f"libtabmat_tpu_native-{key.hexdigest()[:16]}.so"
+    )
+
+
+def _build(path: str) -> None:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"  # concurrent builders never clash
+    subprocess.run(
+        ["g++", *_FLAGS, _SOURCE, "-o", tmp],
+        capture_output=True,
+        timeout=120,
+        check=True,
+    )
+    os.replace(tmp, path)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    path = library_path()
+    if not os.path.exists(path):
         if os.environ.get("TABMAT_TPU_NO_NATIVE_BUILD", "0") == "1":
             return None
         try:
-            subprocess.run(
-                ["sh", os.path.join(_HERE, "build.sh")],
-                capture_output=True,
-                timeout=120,
-                check=True,
-            )
-        except Exception:
+            _build(path)
+        except (OSError, subprocess.SubprocessError):
             return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
         lib.counting_argsort_i32.restype = ctypes.c_int
         lib.counting_argsort_i32.argtypes = [
             ctypes.POINTER(ctypes.c_int32),
@@ -169,7 +200,7 @@ def expand_pairs_csr(indptr: np.ndarray):
 
 
 def _sparse_walk(fn_name, data, indices, indptr, n_out, vec, out):
-    """Shared driver for the OpenMP CSR/CSC walks (None → no native lib)."""
+    """Shared caller of the OpenMP CSR/CSC walks (None → no native lib)."""
     lib = _load()
     if lib is None or getattr(lib, fn_name, None) is None:
         return None

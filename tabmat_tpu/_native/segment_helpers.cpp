@@ -1,13 +1,13 @@
 // Native host helpers for tabmat-tpu (C ABI, loaded via ctypes).
 //
-// The TPU kernels need a one-time host-side preprocessing step per matrix:
+// The device kernels need a one-time host-side preprocessing step per matrix:
 // the SegmentPlan (stable argsort of an int code vector + segment bounds).
 // numpy's comparison argsort is O(n log n); categorical codes are bounded
 // ints, so a counting sort gets the plan in O(n + K) with OpenMP-friendly
 // memory streams.  This mirrors the role (not the design) of the
 // reference's Cython construction helpers (tabmat/ext/split.pyx:157-217).
 //
-// Build: see build.sh (g++ -O3 -fopenmp -shared -fPIC).
+// Build: compiled on first use by the loader in __init__.py.
 
 #include <cstdint>
 #include <cstring>

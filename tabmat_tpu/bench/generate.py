@@ -1,6 +1,7 @@
 """Benchmark matrix generators — the reference's designs, regenerated.
 
-Shapes follow ``/root/reference/src/tabmat/benchmark/generate_matrices.py:90-101``:
+Shapes follow the reference's
+``src/tabmat/benchmark/generate_matrices.py:90-101``:
 dense 4M×10, sparse 400k×100 (1% density), sparse_narrow 3M×3, sparse_wide
 40k×10k, one_cat 1M×100k, two_cat 1M×(1k+1k), dense_cat 3M×(5+1k+1k),
 dense_smallcat 3M×(5+10+1k).

@@ -6,7 +6,7 @@ formulaic (reference ``tabmat/formula.py:670-711`` delegates ``C()`` to
 custom contrast matrices).  tabmat-tpu implements the codings natively:
 
 - ``contr.treatment(base=...)``: one-hot with a chosen reference level;
-  stays a CategoricalMatrix (code shift), so the TPU gather/segment-sum
+  stays a CategoricalMatrix (code shift), so the gather/segment-sum
   kernels still apply.
 - ``contr.sum()``: deviation coding — level ``j`` vs the grand mean; the
   last level carries ``-1``s (R's ``contr.sum``).
@@ -17,7 +17,7 @@ custom contrast matrices).  tabmat-tpu implements the codings natively:
 - ``contr.custom(matrix, labels=...)``: any (K, m) coding matrix.
 
 Non-treatment codings materialize as dense columns ``M[codes, :]`` —
-the coded factor then rides the dense MXU path, which is the right TPU
+the coded factor then rides the dense contraction path, the natural
 mapping for what is algebraically a dense linear re-basis of one-hot.
 
 In full-rank position (no rank reduction requested) every coding spans

@@ -766,8 +766,8 @@ def _contrast_coded_slot(slot, factor_name, spec, reduced, categorical_format):
     """Materialize a non-treatment contrast coding as dense columns.
 
     The coded factor is ``M[codes, :]`` (missing rows → zeros) scaled by
-    any accumulated interaction multipliers; on TPU these columns ride the
-    dense MXU path, the natural mapping for a dense re-basis of one-hot.
+    any accumulated interaction multipliers; these columns ride the dense
+    contraction path, the natural mapping for a dense re-basis of one-hot.
     """
     M, frag_labels = spec.coding(list(slot.categories), reduced)
     k, m = M.shape

@@ -1,12 +1,11 @@
-"""A TPU-native GLM solver built on the tabmat-tpu kernels.
+"""A GLM solver built on the tabmat-tpu kernels.
 
 The reference library exists to serve a GLM solver (glum; reference
 ``README.md:46``).  tabmat-tpu ships the solver layer itself as its
-flagship "model": iteratively reweighted least squares with a matrix-free
+flagship "model": iteratively reweighted least squares with a
 conjugate-gradient inner solve — every FLOP is a sandwich-structured
 matvec, so the whole training step jits into a single XLA program with no
-host round-trips and no factorization (LU/Cholesky don't map well to the
-MXU at fp64).
+host round-trips and no factorization.
 
 Functional core (jittable, shardable over a row mesh):
   - ``irls_step(X, y, weights, beta, family=...)`` — one Newton step
@@ -21,6 +20,8 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .ops import dense_ops
 
 FAMILIES = (
     "gaussian",
@@ -98,8 +99,6 @@ def _family_terms(family: str, eta: jax.Array, y: jax.Array):
 
 def _make_mv_tmv(X):
     """Matvec/transpose-matvec closures for an array or DeviceDesign."""
-    from .ops import dense_ops
-
     if isinstance(X, jax.Array):
         return (
             lambda v: dense_ops.matvec(X, v),
@@ -121,12 +120,12 @@ def _cg_solve(matvec: Callable, b: jax.Array, n_iter: int) -> jax.Array:
     def body(_, state):
         x, r, p, rs = state
         Ap = matvec(p)
-        denom = jnp.vdot(p, Ap)
+        denom = dense_ops.matmul(p, Ap)
         live = denom > tiny
         alpha = jnp.where(live, rs / jnp.where(live, denom, 1.0), 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = jnp.vdot(r, r)
+        rs_new = dense_ops.matmul(r, r)
         beta = jnp.where(
             rs > tiny, rs_new / jnp.where(rs > tiny, rs, 1.0), 0.0
         )
@@ -134,7 +133,7 @@ def _cg_solve(matvec: Callable, b: jax.Array, n_iter: int) -> jax.Array:
         return (x, r, p, rs_new)
 
     x0 = jnp.zeros_like(b)
-    state = (x0, b, b, jnp.vdot(b, b))
+    state = (x0, b, b, dense_ops.matmul(b, b))
     x, *_ = jax.lax.fori_loop(0, n_iter, body, state)
     return x
 
@@ -155,15 +154,16 @@ def irls_step(
     """One IRLS Newton step with a matrix-free CG inner solve.
 
     The Hessian-vector product is two sandwich-structured matvecs —
-    ``Hv = Xᵀ (w ⊙ (X v)) + l2·v`` — which XLA maps onto the MXU and, under
-    a row-sharded mesh, reduces with a single psum per matvec.
+    ``Hv = Xᵀ (w ⊙ (X v)) + l2·v`` — which, under a row-sharded mesh,
+    reduce with a single all-reduce per matvec.  Designs with an explicit
+    sandwich build the (k, k) Hessian once and run CG on it.
 
-    The linear predictor and gradient are evaluated in the operand dtype
-    (exact f64 via the chunked/Ozaki kernels on TPU); by default the *inner*
-    CG iteration runs in float32 — an inexact-Newton direction, which IRLS
-    absorbs (same fixed point, occasionally one extra outer iteration) while
-    turning 2·n_cg emulated-f64 matvecs into native-speed f32 ones.  Pass
-    ``inner_precision='float64'`` for a fully f64 step.
+    The linear predictor and gradient are evaluated in the operand dtype;
+    by default the *inner* CG iteration runs in float32 — an inexact-Newton
+    direction, which IRLS absorbs (same fixed point, occasionally one extra
+    outer iteration).  Every float32 contraction is pinned to full
+    precision (never TF32).  Pass ``inner_precision='float64'`` for a fully
+    f64 step.
     """
     mv, tmv = _make_mv_tmv(X)
 
@@ -187,12 +187,14 @@ def irls_step(
             H = X32.sandwich(w.astype(jnp.float32))
             if l2:
                 H = H + jnp.float32(l2) * jnp.diag(ps.astype(jnp.float32))
-            delta = _cg_solve(lambda v: H @ v, grad.astype(jnp.float32), n_cg)
+            delta = _cg_solve(
+                lambda v: dense_ops.matmul(H, v), grad.astype(jnp.float32), n_cg
+            )
             return beta + delta.astype(beta.dtype)
         H = X.sandwich(w)
         if l2:
             H = H + l2 * jnp.diag(ps)
-        delta = _cg_solve(lambda v: H @ v, grad, n_cg)
+        delta = _cg_solve(lambda v: dense_ops.matmul(H, v), grad, n_cg)
         return beta + delta
 
     use_f32_inner = inner_precision == "float32" and jnp.dtype(
@@ -205,7 +207,10 @@ def irls_step(
         ps32 = ps.astype(jnp.float32)
 
         def hvp(v):
-            return X32.T @ (w32 * (X32 @ v)) + jnp.float32(l2) * ps32 * v
+            return (
+                dense_ops.transpose_matvec(X32, w32 * dense_ops.matvec(X32, v))
+                + jnp.float32(l2) * ps32 * v
+            )
 
         delta = _cg_solve(hvp, grad.astype(jnp.float32), n_cg)
         return beta + delta.astype(beta.dtype)
@@ -325,8 +330,6 @@ def fit_glm(
     from .models.standardized import StandardizedMatrix
 
     if isinstance(X, (MatrixBase, StandardizedMatrix)):
-        # DenseMatrix included: the DeviceDesign carries its Ozaki slice
-        # caches into the jitted step (exact-f64 matvec/tmv at MXU speed)
         from .parallel.design import DeviceDesign
 
         X = DeviceDesign.from_matrix(X)
@@ -402,7 +405,7 @@ def fit_glm(
 class GeneralizedLinearRegressor:
     """Minimal sklearn-style GLM estimator over tabmat-tpu matrices.
 
-    The TPU-native counterpart of the solver the reference library was
+    The counterpart of the solver the reference library was
     built to serve (glum; reference ``README.md:46``).  Accepts numpy/jax
     arrays, any MatrixBase, a StandardizedMatrix, or a pandas DataFrame
     (routed through ``from_df``).

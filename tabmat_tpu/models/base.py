@@ -10,7 +10,7 @@ is three linear-algebra ops with zero-copy active-set restriction —
 — plus conversion (``toarray``/``astype``/``getcol``/``__getitem__``),
 weighted standardization, and the column/term names API.
 
-TPU-native notes: implementations dispatch to jitted kernels in
+Implementation notes: implementations dispatch to jitted kernels in
 ``tabmat_tpu.ops``.  Row restrictions become multiplicative masks (exact, no
 copies, static shapes); column restrictions become gathers on the small
 axis.  ``out=`` follows the dual convention in ``utils.arrays``.

@@ -12,9 +12,10 @@ shift: ``eff = codes - drop_first`` with negative codes contributing nothing
 — a single unified path instead of the reference's fast/complex kernel split
 (``categorical_matrix.py:526-537``).
 
-TPU-native design: the code vector lives in HBM; reductions use the cached
-argsort/cumsum SegmentPlan (no atomics/scatter); cross-products against
-dense blocks become segment-summed row reductions (see ``SplitMatrix``).
+Device design: the code vector lives in device memory; reductions use the
+cached argsort/cumsum SegmentPlan (no atomics/scatter); cross-products
+against dense blocks become segment-summed row reductions (see
+``SplitMatrix``).
 """
 
 import warnings
@@ -210,7 +211,6 @@ class CategoricalMatrix(MatrixBase):
 
         # device-side state, built lazily
         self._eff_codes_dev: Optional[jax.Array] = None
-        self._codes2d_dev: Optional[jax.Array] = None
         self._plan: Optional[SegmentPlan] = None
         # weak keys: a plan dies with the matrix it was built against
         # (an id()-keyed dict returns stale plans after address reuse)
@@ -223,7 +223,6 @@ class CategoricalMatrix(MatrixBase):
         """Pickle only host state; device plans rebuild lazily on load."""
         state = self.__dict__.copy()
         state["_eff_codes_dev"] = None
-        state["_codes2d_dev"] = None
         state["_plan"] = None
         state["_cross_plans"] = None  # WeakKeyDictionary is not picklable
         return state
@@ -257,24 +256,6 @@ class CategoricalMatrix(MatrixBase):
             self._plan = build_plan(self._eff_codes_np, self.shape[1])
         return self._plan
 
-    @property
-    def codes2d(self) -> Optional[jax.Array]:
-        """(R, 128) padded codes for the Pallas table-gather, or None.
-
-        Structural — built once, reused by every matvec on this matrix.
-        """
-        from ..ops import pallas_gather
-
-        if not pallas_gather.supported(self.shape[1], self.dtype):
-            return None
-        if self._codes2d_dev is None:
-            self._codes2d_dev = jnp.asarray(
-                pallas_gather.build_codes2d(
-                    self._eff_codes_np.astype(np.int32, copy=False)
-                )
-            )
-        return self._codes2d_dev
-
     # -- core ops ------------------------------------------------------------
 
     def matvec(self, other, cols: Optional[np.ndarray] = None, out=None):
@@ -297,9 +278,7 @@ class CategoricalMatrix(MatrixBase):
             cmask[np.asarray(cols)] = 1
             other = other * jnp.asarray(cmask)
 
-        res = categorical_ops.routed_matvec(
-            self.eff_codes, other, self.codes2d, self.shape[0]
-        )
+        res = categorical_ops.take_matvec(self.eff_codes, other)
         if is_int:
             res = res.astype(np.int64 if np.dtype(self.dtype) == np.float64 else np.int32)
         if out is None:

@@ -2,8 +2,8 @@
 
 Parity target: reference ``tabmat/dense_matrix.py:24-347``.  Instead of
 wrapping a contiguous numpy array and dispatching to C++ kernels, this class
-owns a ``jax.Array`` in HBM and dispatches to the jitted/Pallas kernels in
-``tabmat_tpu.ops.dense_ops``.  Contiguity is irrelevant on device, so any
+owns a ``jax.Array`` in device memory and dispatches to the jitted kernels
+in ``tabmat_tpu.ops.dense_ops``.  Contiguity is irrelevant on device, so any
 numpy layout is accepted without copies or warnings.
 """
 
@@ -33,9 +33,9 @@ from .base import MatrixBase
 
 
 class DenseMatrix(MatrixBase):
-    """A dense matrix stored in device HBM.
+    """A dense matrix stored in device memory.
 
-    Supports the full MatrixBase contract: ``sandwich`` (MXU),
+    Supports the full MatrixBase contract: ``sandwich``,
     ``matvec``/``transpose_matvec`` with active-set restriction, column
     standardization statistics, names, and indexing.
 
@@ -64,8 +64,6 @@ class DenseMatrix(MatrixBase):
             raise ValueError("Input array must be 1- or 2-dimensional")
 
         self._array = arr
-        self._ozaki_cache = None  # lazily-built X-side slice caches (TPU f64)
-        self._ozaki_cache_T = None
         width = arr.shape[1]
 
         if column_names is not None:
@@ -110,10 +108,10 @@ class DenseMatrix(MatrixBase):
     T = property(transpose)
 
     def __matmul__(self, other):
-        return result_like(other, self._array @ jnp.asarray(other))
+        return result_like(other, dense_ops.matmul(self._array, jnp.asarray(other)))
 
     def __rmatmul__(self, other):
-        return result_like(other, jnp.asarray(other) @ self._array)
+        return result_like(other, dense_ops.matmul(jnp.asarray(other), self._array))
 
     def __str__(self):
         return "{}x{} DenseMatrix:\n\n".format(*self.shape) + np.array_str(
@@ -202,111 +200,16 @@ class DenseMatrix(MatrixBase):
         if not is_identity_index(cols, self.shape[1]):
             cols_np = np.asarray(cols)
 
-        plane_cache = self._get_plane_cache() if cols_np is None else None
         S, k = dense_ops.sandwich_restricted(
             self._array,
             d,
             None if mask is None else jnp.asarray(mask),
             cols_np,
-            ozaki_cache=(
-                self._get_ozaki_cache()
-                if cols_np is None and plane_cache is None
-                else None
-            ),
-            plane_cache=plane_cache,
         )
         if is_jax_array(d_in):
             return S[:k, :k] if S.shape[0] != k else S
         out = np.asarray(S)
         return out[:k, :k] if out.shape[0] != k else out
-
-    # X-side Ozaki slices are structural: build once, reuse every sandwich.
-    # Budget: 7 bf16 slices ≈ 0.9× the f64 matrix itself in HBM per layout
-    # (the sandwich uses the chunked (S, nc, CHUNK, k) layout, the matvec
-    # the transposed (S, k, n) layout — see ozaki.slice_matrix_T).
-    _OZAKI_CACHE_MAX_ELEMENTS = 1 << 26
-
-    def _ozaki_eligible(self) -> bool:
-        from ..ops.ozaki import cache_worthwhile
-
-        n, k = self.shape
-        return cache_worthwhile(n, k, self.dtype, self._OZAKI_CACHE_MAX_ELEMENTS)
-
-    def _get_ozaki_cache(self):
-        if not self._ozaki_eligible():
-            return None
-        if self._ozaki_cache is None:
-            from .._config import cache_charge
-            from ..ops import ozaki
-
-            n, k = self.shape
-            if not cache_charge(14 * n * k, self):  # 7 bf16 slices
-                return None
-            self._ozaki_cache = ozaki.slice_matrix(self._array)
-        return self._ozaki_cache
-
-    def _get_plane_cache(self):
-        """Structural f32-plane cache for the one-pass v3 sandwich kernel.
-
-        Half the HBM of the 7-slice bf16 cache (8 vs 14 bytes/element) and
-        the kernel never re-slices the d side in HBM — see
-        ``ops/pallas_sandwich_v3``.
-        """
-        from ..ops import pallas_sandwich_v3, pallas_sandwich_v5
-
-        pref = pallas_sandwich_v5.preferred()  # v4 or v5 by config
-        n, k = self.shape
-        if not self._ozaki_eligible():
-            return None
-        if getattr(self, "_plane_cache", None) is None:
-            from .._config import cache_charge
-
-            est = (
-                pref.estimate_cache_bytes(n, k)
-                if pref.supported(n, k, self.dtype)
-                else pallas_sandwich_v3.estimate_cache_bytes(n, k)
-            )
-            if not cache_charge(est, self):
-                return None
-            # v4/v5 (int8 plane stacks, B side precomputed) when the
-            # packed width fits one lane tile; else the v3 self-slicer
-            if pref.supported(n, k, self.dtype):
-                self._plane_cache = pref.build_plane_cache(self._array)
-            elif pallas_sandwich_v3.supported(n, k, self.dtype):
-                # narrow matrices pack G row-groups into the lanes
-                if pallas_sandwich_v3.pack_group(k) > 1:
-                    self._plane_cache = (
-                        pallas_sandwich_v3.build_plane_cache_packed(self._array)
-                    )
-                else:
-                    self._plane_cache = pallas_sandwich_v3.build_plane_cache(
-                        self._array
-                    )
-            else:
-                return None
-        return self._plane_cache
-
-    def _get_ozaki_cache_T(self):
-        """Transposed slice cache used by the exact-f64 matvec."""
-        if not self._ozaki_eligible():
-            return None
-        if getattr(self, "_ozaki_cache_T", None) is None:
-            from .._config import cache_charge
-            from ..ops import ozaki
-
-            n, k = self.shape
-            if not cache_charge(14 * n * k, self):
-                return None
-            self._ozaki_cache_T = ozaki.slice_matrix_T(self._array)
-        return self._ozaki_cache_T
-
-    def __getstate__(self):
-        """Pickle without the rebuildable slice caches."""
-        state = self.__dict__.copy()
-        state["_ozaki_cache"] = None
-        state["_ozaki_cache_T"] = None
-        state["_plane_cache"] = None
-        return state
 
     def _cross_sandwich(
         self,
@@ -357,38 +260,7 @@ class DenseMatrix(MatrixBase):
                 mask = rows_to_mask(np.asarray(rows), n, vec.dtype)
                 m = jnp.asarray(mask)
                 v_eff = vec * (m if vec.ndim == 1 else m[:, None])
-            res_full = None
-            if v_eff.ndim == 1:
-                from ..ops import pallas_sandwich_v4, pallas_sandwich_v5
-
-                # ride the v4/v5 sandwich cache only when it already
-                # exists (GLM loops always sandwich too); a tmv-only
-                # caller gets the cheaper ozaki transpose cache instead
-                # of eagerly paying the full plane-stack HBM build
-                pc = getattr(self, "_plane_cache", None)
-                if isinstance(
-                    pc,
-                    (
-                        pallas_sandwich_v4.PlaneCacheV4,
-                        pallas_sandwich_v5.PlaneCacheV5,
-                    ),
-                ):
-                    # one batched int8 dot over the sandwich cache's
-                    # B-stack — reads the only O(n·k) operand once and
-                    # shares HBM with the sandwich (no second slice cache)
-                    res_full = pallas_sandwich_v5.module_for(pc).tmv_from_cache(
-                        pc, v_eff
-                    )
-                else:
-                    cache = self._get_ozaki_cache()
-                    if cache is not None:
-                        from ..ops import ozaki
-
-                        res_full = ozaki.transpose_matvec_cached(
-                            cache[0], cache[1], v_eff
-                        )
-            if res_full is None:
-                res_full = dense_ops.transpose_matvec(self._array, v_eff)
+            res_full = dense_ops.transpose_matvec(self._array, v_eff)
             if unrestricted_cols:
                 res = res_full
                 if out is None:
@@ -415,17 +287,7 @@ class DenseMatrix(MatrixBase):
                     cols_to_mask(np.asarray(cols), k, np.dtype(vec.dtype))
                 )
                 v_eff = vec * (cmask if vec.ndim == 1 else cmask[:, None])
-            cache_T = self._get_ozaki_cache_T() if v_eff.ndim == 1 else None
-            if cache_T is not None:
-                # exact-f64 matvec on the MXU via transposed bf16 slices:
-                # ~1.5 ms at 1M×50 vs ~90 ms for the emulated-f64 dot
-                from ..ops import ozaki
-
-                res = ozaki.matvec_cached_T(
-                    cache_T[0], cache_T[1], v_eff, n=self.shape[0]
-                )
-            else:
-                res = dense_ops.matvec(self._array, v_eff)
+            res = dense_ops.matvec(self._array, v_eff)
             if out is None:
                 return result_like(vec_in, res)
             return add_into_out(out, res)

@@ -1,15 +1,15 @@
 """SparseMatrix: host CSC container with device CSR/CSC reduction mirrors.
 
 Parity target: reference ``tabmat/sparse_matrix.py:27-407``.  Construction,
-slicing, and export stay on the host as ``scipy.sparse.csc_matrix`` (CSC
-doesn't map to TPU directly); the compute path uploads the structure arrays
-once and runs the boundary-segmented cumsum kernels in
-``tabmat_tpu.ops.sparse_ops``:
+slicing, and export stay on the host as ``scipy.sparse.csc_matrix``; the
+compute path uploads the structure arrays once and runs the
+boundary-segmented cumsum kernels in ``tabmat_tpu.ops.sparse_ops``:
 
 - ``matvec``           → CSR walk (segments = rows)
 - ``transpose_matvec`` → CSC walk (segments = columns)
-- ``sandwich``         → densified device mirror + MXU for GLM-typical
-  widths; host scipy SpGEMM fallback for very wide matrices
+- ``sandwich``         → within-row pair expansion for very sparse designs,
+  densified device mirror + dense contraction for GLM-typical widths;
+  host scipy SpGEMM fallback for very wide matrices
 - cross vs dense       → gather rows of ``d·B`` + column-bounded segment sum
 """
 
@@ -122,13 +122,6 @@ class SparseMatrix(MatrixBase):
         self._dev_csc = None
         self._dev_dense = None
         self._pair_plan = None  # (plan, ia, ib, row) for the pair sandwich
-        self._mirror_ozaki = None  # (QX, eX, QXT, eXT) slice caches
-        self._wide_plan = None  # sparse_wide.WideSandwichPlan (huge k)
-        self._cols2d_dev = None  # Pallas gather layout of CSR col indices
-        self._rows2d_dev = None  # Pallas gather layout of CSC row indices
-        self._bounds_wplan = None  # windowed-take plan over CSR indptr
-        self._rowid_wplan = None  # windowed-take plan over CSR nnz row ids
-        self._col_codes_dev = None  # segsum layout of CSR col indices
 
     def __getstate__(self):
         """Pickle only host state; device mirrors rebuild lazily on load."""
@@ -138,15 +131,6 @@ class SparseMatrix(MatrixBase):
         state["_dev_dense"] = None
         state["_pair_plan"] = None
         state["_array_csr"] = None
-        state["_mirror_ozaki"] = None
-        state["_mirror_plane"] = None
-        state["_wide_plan"] = None
-        state["_cols2d_dev"] = None
-        state["_rows2d_dev"] = None
-        state["_bounds_wplan"] = None
-        state["_rowid_wplan"] = None
-        state["_col_codes_dev"] = None
-        state["_fused_tmv_cache"] = None
         return state
 
     # -- device mirrors --------------------------------------------------
@@ -224,230 +208,6 @@ class SparseMatrix(MatrixBase):
                 return None
             self._dev_dense = jnp.asarray(self._array.toarray())
         return self._dev_dense
-
-    # densified mirror slice budget: QX + QXT cost 28 bytes/element
-    _MIRROR_OZAKI_MAX_ELEMENTS = 1 << 26
-
-    def _mirror_ozaki_caches(self):
-        """Ozaki slice caches over the densified mirror (TPU fast path).
-
-        At GLM-typical widths a "sparse" matvec/tmv/sandwich is fastest as
-        an exact bf16-MXU *dense* contraction over the densified mirror —
-        the MXU chews the zero-multiplies far faster than any gather/cumsum
-        pipeline walks the nonzeros (reference kernel:
-        ``tabmat/ext/sparse.pyx:17-77``, an OpenMP CSC walker).
-        """
-        from ..ops.ozaki import cache_worthwhile
-
-        n, k = self.shape
-        if not cache_worthwhile(
-            n, k, self.dtype, self._MIRROR_OZAKI_MAX_ELEMENTS
-        ):
-            return None
-        dense = self._dense_mirror()
-        if dense is None:
-            return None
-        if self._mirror_ozaki is None:
-            from .._config import cache_charge
-            from ..ops import ozaki
-
-            if not cache_charge(28 * n * k, self):  # QX + QXT, 14 B/el each
-                return None
-            QX, eX = ozaki.slice_matrix(dense)
-            QXT, eXT = ozaki.slice_matrix_T(dense)
-            self._mirror_ozaki = (QX, eX, QXT, eXT)
-        return self._mirror_ozaki
-
-    def _mirror_plane_cache(self):
-        """f32-plane cache over the mirror for the one-pass sandwich (v5/v4/v3)."""
-        from ..ops import pallas_sandwich_v3, pallas_sandwich_v5
-
-        pref = pallas_sandwich_v5.preferred()  # v4 or v5 by config
-        n, k = self.shape
-        dense = None
-        if getattr(self, "_mirror_plane", None) is None:
-            from .._config import cache_charge
-
-            if pref.supported(n, k, self.dtype):
-                dense = self._dense_mirror()
-                if dense is None:
-                    return None
-                if not cache_charge(
-                    pref.estimate_cache_bytes(n, k), self
-                ):
-                    return None
-                self._mirror_plane = pref.build_plane_cache(dense)
-            elif pallas_sandwich_v3.supported(n, k, self.dtype):
-                dense = self._dense_mirror()
-                if dense is None:
-                    return None
-                if not cache_charge(
-                    pallas_sandwich_v3.estimate_cache_bytes(n, k), self
-                ):
-                    return None
-                if pallas_sandwich_v3.pack_group(k) > 1:
-                    self._mirror_plane = (
-                        pallas_sandwich_v3.build_plane_cache_packed(dense)
-                    )
-                else:
-                    self._mirror_plane = pallas_sandwich_v3.build_plane_cache(
-                        dense
-                    )
-        return getattr(self, "_mirror_plane", None)
-
-    def _wide_matvec_plan(self):
-        """Wide-sparse int8-plane plan for matvec/tmv (None when not apt).
-
-        Only engages when the dense-mirror MXU path is unavailable (very
-        wide designs) — there the nonzero gather walk is ~13 ns/element
-        while one pass over the densified int8 planes is HBM-bound.
-        """
-        from ..ops import sparse_wide
-
-        n, k = self.shape
-        if not (
-            sparse_wide.supported(n, k, self._array.nnz, self.dtype)
-            and max(n, k) <= sparse_wide.MAX_CONTRACT
-        ):
-            return None
-        if self._dense_mirror() is not None:
-            return None
-        if self._wide_plan is None:
-            self._wide_plan = sparse_wide.WideSandwichPlan(self._array)
-        return self._wide_plan
-
-    def _window_matvec_parts(self, dtype):
-        """Windowed-boundary CSR matvec pieces, or None when not apt.
-
-        Engages on TPU for 1-D f32/f64 vectors when every (BR·128,)-tile
-        of the indptr spans ≤ MAX_WINDOW_ROWS table rows (structural).
-        """
-        from ..ops import pallas_gather, pallas_window_take
-
-        if not pallas_window_take.supported(dtype):
-            return None
-        if self._bounds_wplan is None:
-            csr = self.array_csr
-            plan = pallas_window_take.build_plan(
-                csr.indptr, src_len=int(self._array.nnz) + 1
-            )
-            if plan is None:
-                self._bounds_wplan = ()
-            else:
-                self._bounds_wplan = (
-                    plan,
-                    jnp.asarray(plan.codes2d),
-                    jnp.asarray(plan.ws),
-                )
-        if self._bounds_wplan == ():
-            return None
-        plan, bcodes2d, bws = self._bounds_wplan
-        cols2d = self._pallas_cols2d(dtype)
-        if cols2d is not None:
-            return bcodes2d, bws, plan.window, cols2d, True
-        return bcodes2d, bws, plan.window, self._csr_parts()[1], False
-
-    def _fused_tmv_parts(self, dtype):
-        """Fused one-pass transpose-matvec plan uploads, or None.
-
-        One Pallas dispatch replaces the round-4 windowed-take → multiply
-        → one-hot segsum sequence (see ``ops/pallas_tmv_fused``); the tile
-        height adapts to the design's nnz/row so the gather window stays
-        shallow.  Covers k ≤ 512 with any source length.
-        """
-        from ..ops import pallas_tmv_fused as ptf
-
-        if not ptf.supported(dtype):
-            return None
-        if getattr(self, "_fused_tmv_cache", None) is None:
-            n, k = self.shape
-            csr = self.array_csr
-            row_ids = np.repeat(
-                np.arange(n, dtype=np.int32), np.diff(csr.indptr)
-            )
-            plan = ptf.build_plan(row_ids, csr.indices, n, k)
-            if plan is None:
-                self._fused_tmv_cache = ()
-            else:
-                dh, dl = ptf.split_planes(jnp.asarray(csr.data))
-                R = plan.codes2d.shape[0]
-                pad = R * 128 - plan.nnz
-                self._fused_tmv_cache = (
-                    plan,
-                    jnp.pad(dh, (0, pad)).reshape(R, 128),
-                    jnp.pad(dl, (0, pad)).reshape(R, 128),
-                    jnp.asarray(plan.codes2d),
-                    jnp.asarray(plan.ccodes2d),
-                    jnp.asarray(plan.wsb),
-                    jnp.asarray(plan.r0),
-                )
-        if self._fused_tmv_cache == ():
-            return None
-        return self._fused_tmv_cache
-
-    def _window_tmv_parts(self, dtype):
-        """Windowed CSR transpose-matvec pieces, or None when not apt."""
-        from ..ops import pallas_segsum, pallas_window_take
-
-        n, k = self.shape
-        if not pallas_window_take.supported(dtype):
-            return None
-        if not pallas_segsum.supported_any(k, dtype, n=self._array.nnz):
-            return None
-        if self._rowid_wplan is None:
-            csr = self.array_csr
-            row_ids = np.repeat(
-                np.arange(n, dtype=np.int32), np.diff(csr.indptr)
-            )
-            plan = pallas_window_take.build_plan(row_ids, src_len=n)
-            if plan is None:
-                self._rowid_wplan = ()
-            else:
-                self._rowid_wplan = (
-                    plan,
-                    jnp.asarray(plan.codes2d),
-                    jnp.asarray(plan.ws),
-                )
-        if self._rowid_wplan == ():
-            return None
-        if self._col_codes_dev is None:
-            csr = self.array_csr
-            self._col_codes_dev = jnp.asarray(
-                pallas_segsum.build_codes_col(
-                    csr.indices.astype(np.int32, copy=False)
-                )
-            )
-        plan, rcodes2d, rws = self._rowid_wplan
-        return rcodes2d, rws, plan.window, self._col_codes_dev
-
-    def _pallas_cols2d(self, dtype):
-        """Structural CSR-column gather layout (matvec: table = v, len k)."""
-        from ..ops import pallas_gather
-
-        if not pallas_gather.supported(self.shape[1], dtype):
-            return None
-        if self._cols2d_dev is None:
-            csr = self.array_csr
-            self._cols2d_dev = jnp.asarray(
-                pallas_gather.build_codes2d(
-                    csr.indices.astype(np.int32, copy=False)
-                )
-            )
-        return self._cols2d_dev
-
-    def _pallas_rows2d(self, dtype):
-        """Structural CSC-row gather layout (tmv: table = r, len n)."""
-        from ..ops import pallas_gather
-
-        if not pallas_gather.supported(self.shape[0], dtype):
-            return None
-        if self._rows2d_dev is None:
-            self._rows2d_dev = jnp.asarray(
-                pallas_gather.build_codes2d(
-                    self._array.indices.astype(np.int32, copy=False)
-                )
-            )
-        return self._rows2d_dev
 
     # -- scipy-compatible surface -----------------------------------------
 
@@ -577,45 +337,6 @@ class SparseMatrix(MatrixBase):
         d_np = np.asarray(d) if not is_jax_array(d) else d
         check_sandwich_compatible(self, d_np)
 
-        mirror = self._mirror_ozaki_caches()
-        if mirror is not None and np.dtype(d_np.dtype) == np.float64:
-            from ..ops import ozaki
-
-            d_dev = jnp.asarray(d_np)
-            mask = rows_to_mask(
-                None if rows is None else np.asarray(rows), self.shape[0], self.dtype
-            )
-            dm = d_dev if mask is None else d_dev * jnp.asarray(mask)
-            plane = self._mirror_plane_cache()
-            if plane is not None:
-                from ..ops import (
-                    pallas_sandwich_v3,
-                    pallas_sandwich_v4,
-                    pallas_sandwich_v5,
-                )
-
-                if isinstance(
-                    plane,
-                    (
-                        pallas_sandwich_v4.PlaneCacheV4,
-                        pallas_sandwich_v5.PlaneCacheV5,
-                    ),
-                ):
-                    S = pallas_sandwich_v5.module_for(plane).sandwich_from_cache(
-                        plane, dm
-                    )
-                else:
-                    S = pallas_sandwich_v3.sandwich_from_cache(plane, dm)
-            else:
-                S = ozaki.sandwich_cached(self._dense_mirror(), dm, mirror[:2])
-            if not is_identity_index(cols, self.shape[1]):
-                c = np.asarray(cols)
-                if is_jax_array(d_in):
-                    ci = jnp.asarray(c.astype(np.int32))
-                    return jnp.take(jnp.take(S, ci, axis=0), ci, axis=1)
-                return np.asarray(S)[np.ix_(c, c)]
-            return S if is_jax_array(d_in) else np.asarray(S)
-
         pair = self._pair_sandwich_parts()
         if pair is not None:
             pairprod_sorted, row_sorted, bounds = pair
@@ -654,22 +375,6 @@ class SparseMatrix(MatrixBase):
                 return S[:k, :k] if S.shape[0] != k else S
             out = np.asarray(S)
             return out[:k, :k] if out.shape[0] != k else out
-
-        # very wide: exact int8-MXU slice products on device
-        from ..ops import sparse_wide
-
-        if is_identity_index(cols, self.shape[1]) and sparse_wide.supported(
-            self.shape[0], self.shape[1], self._array.nnz, self.dtype
-        ):
-            if self._wide_plan is None:
-                self._wide_plan = sparse_wide.WideSandwichPlan(self._array)
-            d_dev = jnp.asarray(d_np)
-            mask = rows_to_mask(
-                None if rows is None else np.asarray(rows), self.shape[0], self.dtype
-            )
-            dm = d_dev if mask is None else d_dev * jnp.asarray(mask)
-            S = sparse_wide.wide_sandwich(self._wide_plan, dm)
-            return S if is_jax_array(d_in) else np.asarray(S)
 
         # wide fallback: host SpGEMM (scipy), exact
         d_host = np.asarray(d_np)
@@ -732,9 +437,8 @@ class SparseMatrix(MatrixBase):
         return res
 
     # nnz ceiling for the host OpenMP walk (numpy callers): the walk
-    # streams ~1-2 Gnnz/s across cores while the device route has a
-    # multi-ms dispatch+transfer floor for host callers — the walk wins
-    # comfortably through this range
+    # streams ~1-2 Gnnz/s across cores, while the device route pays an
+    # upload of the vector and a download of the result for host callers
     _HOST_WALK_MAX_NNZ = 32_000_000
 
     def _host_walk_matvec(self, vec, rows, cols, out, transpose: bool):
@@ -813,67 +517,10 @@ class SparseMatrix(MatrixBase):
                 mask = rows_to_mask(np.asarray(rows), n, np.dtype(vec.dtype))
                 m = jnp.asarray(mask)
                 v_eff = vec * (m if vec.ndim == 1 else m[:, None])
-            fused = self._fused_tmv_parts(v_eff.dtype) if vec.ndim == 1 else None
-            wtmv = (
-                self._window_tmv_parts(v_eff.dtype)
-                if vec.ndim == 1 and fused is None
-                else None
-            )
-            mirror = (
-                self._mirror_ozaki_caches()
-                if vec.ndim == 1 and wtmv is None and fused is None
-                else None
-            )
-            if fused is not None:
-                from ..ops import pallas_tmv_fused as ptf
-
-                plan, dh2d, dl2d, codes2d, ccodes2d, wsb, r0 = fused
-                S = ptf.S_F64 if v_eff.dtype == jnp.float64 else ptf.S_F32
-                res_full = ptf.fused_tmv(
-                    v_eff, dh2d, dl2d, codes2d, ccodes2d, wsb, r0,
-                    plan.W, plan.BR, plan.SB, plan.kpad, S, plan.nblk, k,
-                    v_eff.dtype == jnp.float64,
-                )
-            elif wtmv is not None:
-                rcodes2d, rws, W, col_codes = wtmv
-                res_full = sparse_ops.csr_tmv_window(
-                    self._csr_parts()[0],
-                    rcodes2d,
-                    rws,
-                    col_codes,
-                    v_eff,
-                    int(self._array.nnz),
-                    k,
-                    W,
-                )
-            elif mirror is not None and v_eff.dtype == jnp.float64:
-                from ..ops import ozaki
-
-                res_full = ozaki.transpose_matvec_cached(
-                    mirror[0], mirror[1], v_eff
-                )
-            elif vec.ndim == 1 and (
-                rows2d := self._pallas_rows2d(v_eff.dtype)
-            ) is not None:
-                # nnz-walk gather + boundary cumsum: the boundary takes
-                # are only (k+1,) — cheap even element-serial
-                data, row_idx, col_bounds = self._csc_parts()
-                res_full = sparse_ops.csc_rmatvec_pg(
-                    data, rows2d, col_bounds, v_eff
-                )
-            elif vec.ndim == 1 and v_eff.dtype == jnp.float64 and (
-                wplan := self._wide_matvec_plan()
-            ) is not None:
-                from ..ops import sparse_wide
-
-                res_full = sparse_wide.wide_transpose_matvec(wplan, v_eff)
-            elif vec.ndim == 1:
-                data, row_idx, col_bounds = self._csc_parts()
-                res_full = sparse_ops.csc_rmatvec(
-                    data, row_idx, col_bounds, v_eff
-                )
+            data, row_idx, col_bounds = self._csc_parts()
+            if vec.ndim == 1:
+                res_full = sparse_ops.csc_rmatvec(data, row_idx, col_bounds, v_eff)
             else:
-                data, row_idx, col_bounds = self._csc_parts()
                 res_full = sparse_ops.csc_rmatmat(data, row_idx, col_bounds, v_eff)
             if is_identity_index(cols, k):
                 if out is None:
@@ -902,58 +549,10 @@ class SparseMatrix(MatrixBase):
                 cmask[np.asarray(cols)] = 1
                 m = jnp.asarray(cmask)
                 v_eff = vec * (m if vec.ndim == 1 else m[:, None])
-            # mirror first: at the 400k×100 benchmark design the cached
-            # transposed-slice matvec measures 3.33 ms vs 3.93 ms for the
-            # windowed CSR route (both exact f64)
-            mirror = (
-                self._mirror_ozaki_caches()
-                if vec.ndim == 1 and v_eff.dtype == jnp.float64
-                else None
-            )
-            wmv = (
-                self._window_matvec_parts(v_eff.dtype)
-                if vec.ndim == 1 and mirror is None
-                else None
-            )
-            if mirror is not None:
-                from ..ops import ozaki
-
-                res = ozaki.matvec_cached_T(
-                    mirror[2], mirror[3], v_eff, n=n
-                )
-            elif wmv is not None:
-                bcodes2d, bws, W, colref, use_pg = wmv
-                res = sparse_ops.csr_matvec_window(
-                    self._csr_parts()[0],
-                    colref,
-                    bcodes2d,
-                    bws,
-                    v_eff,
-                    int(self._array.nnz),
-                    n,
-                    W,
-                    use_pg,
-                )
-            elif vec.ndim == 1 and (
-                cols2d := self._pallas_cols2d(v_eff.dtype)
-            ) is not None:
-                # nnz gather on the lane-shuffle kernel + boundary cumsum;
-                # preferred over the int8-plane wide path: the gather walk
-                # is ~C passes/tile and the (n+1,) boundary takes are the
-                # only element-serial part
-                data, col_idx, row_bounds = self._csr_parts()
-                res = sparse_ops.csr_matvec_pg(data, cols2d, row_bounds, v_eff)
-            elif vec.ndim == 1 and v_eff.dtype == jnp.float64 and (
-                wplan := self._wide_matvec_plan()
-            ) is not None:
-                from ..ops import sparse_wide
-
-                res = sparse_wide.wide_matvec(wplan, v_eff)
-            elif vec.ndim == 1:
-                data, col_idx, row_bounds = self._csr_parts()
+            data, col_idx, row_bounds = self._csr_parts()
+            if vec.ndim == 1:
                 res = sparse_ops.csr_matvec(data, col_idx, row_bounds, v_eff)
             else:
-                data, col_idx, row_bounds = self._csr_parts()
                 res = sparse_ops.csr_matmat(data, col_idx, row_bounds, v_eff)
             if out is None:
                 return result_like(vec_in, res)

@@ -343,12 +343,9 @@ class SplitMatrix(MatrixBase):
         static screen — the built design's ``supports_sandwich`` stays
         authoritative.
         """
-        from ..ops.ozaki import cache_worthwhile
         from ..parallel.design import DeviceDesign, SPARSE_CAT_MAX_SEGMENTS
         from .categorical import CategoricalMatrix
         from .sparse import (
-            DENSE_SANDWICH_MAX_COLS,
-            DENSE_SANDWICH_MAX_ELEMENTS,
             PAIR_SANDWICH_MAX_PAIRS,
             PAIR_SANDWICH_MAX_SEGMENTS,
             SparseMatrix,
@@ -372,14 +369,6 @@ class SplitMatrix(MatrixBase):
             return False
         for m in sparse_mats:
             n, ks = m.shape
-            if n_dense == 0 and (
-                cache_worthwhile(
-                    n, ks, m.dtype, m._MIRROR_OZAKI_MAX_ELEMENTS
-                )
-                and ks <= DENSE_SANDWICH_MAX_COLS
-                and n * ks <= DENSE_SANDWICH_MAX_ELEMENTS
-            ):
-                continue  # densifies into the design's single dense unit
             counts = np.bincount(m._array.indices, minlength=n)
             if int((counts.astype(np.int64) ** 2).sum()) > PAIR_SANDWICH_MAX_PAIRS:
                 return False
@@ -413,8 +402,7 @@ class SplitMatrix(MatrixBase):
         ``tabmat/split_matrix.py:324-356``).  Device callers (jax ``d``)
         stay device-resident end to end: the whole blockwise product is one
         jitted XLA program over the cached DeviceDesign and the (k, k)
-        result is returned WITHOUT a host download (at k≈2000 the download
-        alone costs ~0.8 s through the relay link).
+        result is returned WITHOUT a host download.
         """
         d_np = d if hasattr(d, "dtype") else np.asarray(d)
         check_sandwich_compatible(self, d_np)

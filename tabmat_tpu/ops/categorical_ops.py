@@ -1,6 +1,6 @@
 """Categorical (one-hot) kernels: pure gather / segment-sum formulations.
 
-TPU-native replacement for the reference's index-vector Cython kernels
+Device replacement for the reference's index-vector Cython kernels
 (``tabmat/ext/categorical.pyx:128-315``).  A categorical matrix is just an
 int32 code vector; with ``eff = codes - drop_first`` (so missing/-1 and the
 dropped level both land below zero):
@@ -28,20 +28,6 @@ def take_matvec(eff_codes: jax.Array, v: jax.Array) -> jax.Array:
     valid = eff_codes >= 0
     gathered = jnp.take(v, jnp.clip(eff_codes, 0, v.shape[0] - 1))
     return jnp.where(valid, gathered, jnp.zeros((), dtype=gathered.dtype))
-
-
-def routed_matvec(eff_codes, v, codes2d, n: int) -> jax.Array:
-    """Table-gather matvec: Pallas lane-shuffle kernel when available.
-
-    ``codes2d`` is the structural (R, 128) padded code layout (or None);
-    the XLA gather on this TPU is element-serial (~13 ns/elem) while the
-    Pallas kernel runs at ~1.5 ms / 1M codes for tables up to ~500k.
-    """
-    from . import pallas_gather
-
-    if codes2d is not None and jnp.dtype(v.dtype) in (jnp.float32, jnp.float64):
-        return pallas_gather.table_gather(v, codes2d, n)
-    return take_matvec(eff_codes, v)
 
 
 @jax.jit

@@ -1,21 +1,19 @@
 """Dense kernels: sandwich, matvec, transpose-matvec, weighted column stats.
 
-TPU-native replacement for the reference's BLIS-style C++ sandwich and
+Plain-XLA replacement for the reference's BLIS-style C++ sandwich and
 row/col-restricted matvec kernels (``tabmat/ext/dense.pyx:19-122``,
 ``ext/dense_helpers-tmpl.cpp:41-311``).  Design differences, deliberately:
 
-- No panel packing / register blocking: XLA tiles matmuls onto the MXU and
-  fuses the ``diag(d)`` scaling; float64 contractions use XLA's
-  software-emulated f64 path (accurate to ~1e-13 relative).
+- No panel packing / register blocking: XLA hands the contractions to the
+  GPU's BLAS and fuses the ``diag(d)`` scaling.  Every contraction goes
+  through :func:`matmul`, which pins full precision so float32 operands
+  never run in TF32.
 - Row restriction = multiplying a 0/1 mask into ``d``/``vec`` — exact,
   because every op is a linear reduction over rows.  Static shapes, no
   copies of ``X``.
 - Column restriction = a gather along the small column axis, optionally
   padded to power-of-two buckets so active-set shrinkage (GLM coordinate
   descent) triggers O(log k) compiles instead of O(k).
-
-A fused float32 Pallas sandwich lives in ``tabmat_tpu.ops.pallas_kernels``
-and is selected automatically on TPU for f32 inputs.
 """
 
 from typing import Optional
@@ -25,110 +23,20 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def _use_pallas_sandwich(X) -> bool:
-    from .._config import on_tpu
+def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """``a @ b`` at ``Precision.HIGHEST``.
 
-    return X.dtype == jnp.float32 and on_tpu() and X.ndim == 2
-
-
-# The TPU backend's emulated-f64 dot degrades with contraction length:
-# ≈ exact ≤ 4k (1.9e-15), 1.3e-15 at 16384, ~1e-11 at 32768, ~1e-8 past
-# 48k (algorithm switch).  _F64_CHUNK is the largest contraction allowed
-# un-chunked; longer reductions chunk here with f64 inter-chunk
-# accumulation, which keeps them correctly rounded at any n.  The single
-# source of truth for these numbers is the measured dossier in
-# docs/tpu_platform_notes.md ("float64 semantics"); the boundary is
-# asserted by tests/test_tpu_precision.py.
-_F64_CHUNK = 16384
-
-
-def _needs_exact_f64_chunking(dtype) -> bool:
-    from .._config import on_tpu
-
-    return dtype == jnp.float64 and on_tpu()
+    XLA may run a float32 product in TF32 (10-bit mantissa) unless the
+    precision is pinned; float64 products are unaffected.  Every
+    contraction of the library's compute path goes through here.
+    """
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.jit
-def _sandwich_jnp(X: jax.Array, d: jax.Array) -> jax.Array:
-    # X.T @ diag(d) @ X — let XLA fuse the scaling into the contraction.
-    Xd = X * d[:, None]
-    return jnp.einsum(
-        "ij,ik->jk", Xd, X, preferred_element_type=X.dtype
-    )
-
-
-@jax.jit
-def _sandwich_f64_chunked(X: jax.Array, d: jax.Array) -> jax.Array:
-    """Exact-f64 sandwich: scan of ≤_F64_CHUNK-row MXU partials, f64 adds."""
-    n, k = X.shape
-    n_pad = -(-n // _F64_CHUNK) * _F64_CHUNK
-    Xp = jnp.pad(X, ((0, n_pad - n), (0, 0)))
-    dp = jnp.pad(d, (0, n_pad - n))
-    Xr = Xp.reshape(-1, _F64_CHUNK, k)
-    dr = dp.reshape(-1, _F64_CHUNK)
-
-    def body(acc, xs):
-        Xc, dc = xs
-        part = jax.lax.dot_general(
-            Xc * dc[:, None],
-            Xc,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float64,
-        )
-        return acc + part, None
-
-    S, _ = jax.lax.scan(body, jnp.zeros((k, k), X.dtype), (Xr, dr))
-    return S
-
-
-def _f64_mode() -> str:
-    """TPU f64 contraction strategy: 'ozaki' (exact, bf16 MXU), 'chunked'
-    (exact, emulated f64 dot in ≤16k chunks), or 'fast' (emulated, ~2e-8)."""
-    import os
-
-    return os.environ.get("TABMAT_TPU_F64_MODE", "ozaki")
-
-
-def sandwich(
-    X: jax.Array, d: jax.Array, ozaki_cache=None, plane_cache=None
-) -> jax.Array:
+def sandwich(X: jax.Array, d: jax.Array) -> jax.Array:
     """Unrestricted sandwich ``X.T @ diag(d) @ X`` → (k, k)."""
-    if _use_pallas_sandwich(X):
-        from .pallas_kernels import dense_sandwich_f32
-
-        return dense_sandwich_f32(X, d)
-    if _needs_exact_f64_chunking(X.dtype) and X.shape[0] > _F64_CHUNK:
-        mode = _f64_mode()
-        if mode == "ozaki":
-            from . import ozaki
-
-            if plane_cache is not None:
-                # one-pass self-slicing kernels over the structural f32
-                # planes: v5 (all-pairs single dot), v4 (anti-diagonal
-                # dots) or v3 (both sides sliced in VMEM per call)
-                from . import (
-                    pallas_sandwich_v3,
-                    pallas_sandwich_v4,
-                    pallas_sandwich_v5,
-                )
-
-                if isinstance(
-                    plane_cache,
-                    (
-                        pallas_sandwich_v4.PlaneCacheV4,
-                        pallas_sandwich_v5.PlaneCacheV5,
-                    ),
-                ):
-                    return pallas_sandwich_v5.module_for(
-                        plane_cache
-                    ).sandwich_from_cache(plane_cache, d)
-                return pallas_sandwich_v3.sandwich_from_cache(plane_cache, d)
-            if ozaki_cache is not None:
-                return ozaki.sandwich_cached(X, d, ozaki_cache)
-            return ozaki.sandwich(X, d)
-        if mode == "chunked":
-            return _sandwich_f64_chunked(X, d)
-    return _sandwich_jnp(X, d)
+    return matmul((X * d[:, None]).T, X)
 
 
 @jax.jit
@@ -138,72 +46,15 @@ def apply_mask(v: jax.Array, mask: jax.Array) -> jax.Array:
 
 
 @jax.jit
-def _matvec_jnp(X: jax.Array, v: jax.Array) -> jax.Array:
-    return X @ v
-
-
-@jax.jit
-def _matvec_f64_rowchunked(X: jax.Array, v: jax.Array) -> jax.Array:
-    """Row-chunked ``X @ v``: same math, scan orientation.
-
-    The k-contraction is exact either way; chunking exists purely because
-    the emulated-f64 matmul runs measurably faster in small row blocks on
-    this backend (orientation-dependent emulation path).
-    """
-    n, k = X.shape
-    n_pad = -(-n // _F64_CHUNK) * _F64_CHUNK
-    Xp = jnp.pad(X, ((0, n_pad - n), (0, 0))).reshape(-1, _F64_CHUNK, k)
-
-    def body(_, Xc):
-        return None, Xc @ v
-
-    _, outs = jax.lax.scan(body, None, Xp)
-    return outs.reshape(n_pad)[:n]
-
-
 def matvec(X: jax.Array, v: jax.Array) -> jax.Array:
     """``X @ v`` (v may be 1-d or 2-d)."""
-    return _matvec_jnp(X, v)
+    return matmul(X, v)
 
 
 @jax.jit
-def _transpose_matvec_f64_chunked(X: jax.Array, v: jax.Array) -> jax.Array:
-    """Exact-f64 ``X.T @ v``: chunked partial dots + f64 accumulation."""
-    n, k = X.shape
-    n_pad = -(-n // _F64_CHUNK) * _F64_CHUNK
-    Xp = jnp.pad(X, ((0, n_pad - n), (0, 0)))
-    vp = jnp.pad(v, [(0, n_pad - n)] + [(0, 0)] * (v.ndim - 1))
-    Xr = Xp.reshape(-1, _F64_CHUNK, k)
-    vr = vp.reshape((-1, _F64_CHUNK) + v.shape[1:])
-
-    def body(acc, xs):
-        Xc, vc = xs
-        return acc + jnp.tensordot(Xc.T, vc, axes=1), None
-
-    out0 = jnp.zeros((k,) + v.shape[1:], X.dtype)
-    out, _ = jax.lax.scan(body, out0, (Xr, vr))
-    return out
-
-
 def transpose_matvec(X: jax.Array, v: jax.Array) -> jax.Array:
-    """``X.T @ v`` (v may be 1-d or 2-d); exact-f64 strategies on TPU.
-
-    Chunked emulated-dot is the default here (measured faster than the
-    Ozaki path for the k-small tmv shape); set TABMAT_TPU_F64_MODE=ozaki_all
-    to route tmv through the bf16-MXU slices too.
-    """
-    if _needs_exact_f64_chunking(X.dtype) and X.shape[0] > _F64_CHUNK:
-        if v.ndim == 1 and _f64_mode() == "ozaki_all":
-            from . import ozaki
-
-            return ozaki.transpose_matvec(X, v)
-        return _transpose_matvec_f64_chunked(X, v)
-    return _transpose_matvec_jnp(X, v)
-
-
-@jax.jit
-def _transpose_matvec_jnp(X: jax.Array, v: jax.Array) -> jax.Array:
-    return X.T @ v
+    """``X.T @ v`` (v may be 1-d or 2-d)."""
+    return matmul(X.T, v)
 
 
 @jax.jit
@@ -226,8 +77,7 @@ def transpose_square_dot_weights(
 
     The shifted form is the numerically robust variance used by the
     reference for dense column stds (``tabmat/ext/dense.pyx:103-122``).
-    An explicit axis-0 sum (VPU reduce, correctly rounded at any n) is used
-    instead of a dot-style contraction.
+    An explicit axis-0 sum is used instead of a dot-style contraction.
     """
     centered = X - shift[None, :]
     return jnp.sum(weights[:, None] * centered * centered, axis=0)
@@ -272,8 +122,6 @@ def sandwich_restricted(
     row_mask: Optional[jax.Array],
     cols: Optional[np.ndarray],
     bucket: bool = True,
-    ozaki_cache=None,
-    plane_cache=None,
 ) -> tuple[jax.Array, int]:
     """Sandwich with active-set restriction.
 
@@ -282,7 +130,7 @@ def sandwich_restricted(
     """
     dm = apply_mask(d, row_mask) if row_mask is not None else d
     if cols is None:
-        S = sandwich(X, dm, ozaki_cache=ozaki_cache, plane_cache=plane_cache)
+        S = sandwich(X, dm)
         return S, S.shape[0]
     padded, colmask, k = pad_cols(np.asarray(cols), bucket)
     Xs = gather_cols(X, jnp.asarray(padded))

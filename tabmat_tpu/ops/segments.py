@@ -1,17 +1,15 @@
-"""Scatter-free segment reduction — the core TPU primitive of tabmat-tpu.
+"""Scatter-free segment reduction — the core primitive of tabmat-tpu.
 
 The reference implements categorical/sparse reductions with scatter-adds
 protected by OpenMP atomics or per-thread buffers
-(``tabmat/ext/cat_split_helpers-tmpl.cpp:4-94``).  On TPU, XLA scatter is
-the wrong tool (serialized, and pathologically slow to compile on the
-target platform), so every "out[key[i]] += val[i]" in this library runs
-through a **SegmentPlan** instead:
+(``tabmat/ext/cat_split_helpers-tmpl.cpp:4-94``).  Here every
+"out[key[i]] += val[i]" runs through a **SegmentPlan** instead, which is
+deterministic and needs no atomics:
 
 1. once per key array (= per matrix, since keys are structural):
    ``perm = argsort(keys)``, ``bounds = searchsorted(sorted_keys, 0..K)``;
 2. per operation: gather values through ``perm``, inclusive ``cumsum``,
-   and difference the cumsum at ``bounds`` — a pure gather/scan pipeline
-   that vectorizes perfectly on the VPU.
+   and difference the cumsum at ``bounds`` — a pure gather/scan pipeline.
 
 Cost per op: one (n,)-gather + one (n,)-cumsum + one (K+1,)-gather.  The
 argsort happens once at construction and is cached on the owning matrix.
@@ -34,42 +32,18 @@ class SegmentPlan:
     bounds: (num_segments + 1,) int32 device array — segment boundaries in
         the sorted order; segment ``s`` occupies ``perm[bounds[s]:bounds[s+1]]``.
     num_segments: static int.
-    codes_col: optional (n_pad, 1) int32 device array — structural code
-        layout for the MXU one-hot segment-sum (TPU, num_segments ≤ 2^14);
-        None where the gather/cumsum pipeline is the better (or only) route.
     """
 
     perm: jax.Array
     bounds: jax.Array
     num_segments: int
-    codes_col: jax.Array = None
 
     def sum(self, values: jax.Array) -> jax.Array:
         """Segment-sum ``values`` by the plan's keys → (num_segments,)."""
-        if self.codes_col is not None and values.dtype in (
-            jnp.float32,
-            jnp.float64,
-        ):
-            from . import pallas_segsum
-
-            return pallas_segsum.segsum_auto(
-                values, self.codes_col, self.num_segments
-            )
         return _segment_sum(self.perm, self.bounds, values)
 
     def sum2d(self, values: jax.Array) -> jax.Array:
         """Row-wise segment-sum of a (n, m) matrix → (num_segments, m)."""
-        from . import pallas_segsum
-
-        if (
-            self.codes_col is not None
-            and values.dtype in (jnp.float32, jnp.float64)
-            and values.shape[1] * 7 <= 128  # lhs slice rows stay one MXU pass
-            # the 2-D variant exists only for the flat kernel; wider code
-            # spaces (codes_col built for the bucketed 1-D route) fall back
-            and pallas_segsum.supported(self.num_segments, values.dtype)
-        ):
-            return pallas_segsum.segsum_2d(values, self.codes_col, self.num_segments)
         return _segment_sum_2d(self.perm, self.bounds, values)
 
 
@@ -102,18 +76,10 @@ def build_plan(keys: np.ndarray, num_segments: int) -> SegmentPlan:
         bounds = np.searchsorted(
             sorted_keys, np.arange(num_segments + 1, dtype=keys.dtype)
         ).astype(np.int64)
-    from . import pallas_segsum
-
-    codes_col = None
-    if keys32.dtype == np.int32 and pallas_segsum.supported_any(
-        num_segments, n=len(keys32)
-    ):
-        codes_col = jnp.asarray(pallas_segsum.build_codes_col(keys32))
     return SegmentPlan(
         perm=jnp.asarray(perm),
         bounds=jnp.asarray(bounds),
         num_segments=num_segments,
-        codes_col=codes_col,
     )
 
 

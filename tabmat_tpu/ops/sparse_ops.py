@@ -1,6 +1,6 @@
 """Sparse (CSR/CSC) kernels: boundary-segmented cumsum reductions.
 
-TPU-native replacement for the reference's Cython CSC/CSR walkers
+Device replacement for the reference's Cython CSC/CSR walkers
 (``tabmat/ext/sparse.pyx:17-283``).  CSR and CSC orderings are themselves
 sorted segment layouts, so every sparse reduction becomes:
 
@@ -10,10 +10,9 @@ with zero scatters and zero per-call sorting (the structure arrays are
 uploaded once per matrix).  matvec walks CSR (segments = rows), transpose-
 matvec and column statistics walk CSC (segments = columns).
 
-The sparse×sparse sandwich uses a densified device mirror for narrow
-matrices (MXU throughput dwarfs the padding waste at GLM-typical widths)
-and falls back to host scipy for very wide ones; see
-``SparseMatrix.sandwich`` for the policy.
+The sparse×sparse sandwich uses a within-row pair expansion or a
+densified device mirror, and falls back to host scipy for very wide
+matrices; see ``SparseMatrix.sandwich`` for the policy.
 """
 
 import jax
@@ -58,95 +57,6 @@ def csc_rmatvec(
     """``out[c] = Σ_{nnz in col c} data * v[row]`` (CSC walk)."""
     t = data * jnp.take(v, row_idx)
     return bounded_segment_sum(t, col_bounds)
-
-
-@jax.jit
-def csr_matvec_pg(
-    data: jax.Array, cols2d: jax.Array, row_bounds: jax.Array, v: jax.Array
-) -> jax.Array:
-    """CSR matvec with the nnz→v gather on the Pallas lane-shuffle kernel.
-
-    XLA's gather is element-serial (~13 ns/nnz); with the structural
-    (R, 128) column layout the same gather runs 5–15× faster for tables
-    (= v) up to ~500k entries.  Used when no dense-mirror route exists
-    (wide sparse matrices).
-    """
-    from . import pallas_gather
-
-    t = data * pallas_gather.table_gather(v, cols2d, data.shape[0])
-    return bounded_segment_sum(t, row_bounds)
-
-
-@jax.jit
-def csc_rmatvec_pg(
-    data: jax.Array, rows2d: jax.Array, col_bounds: jax.Array, v: jax.Array
-) -> jax.Array:
-    """CSC transpose-matvec with the nnz→v gather on the Pallas kernel."""
-    from . import pallas_gather
-
-    t = data * pallas_gather.table_gather(v, rows2d, data.shape[0])
-    return bounded_segment_sum(t, col_bounds)
-
-
-def csr_matvec_window(
-    data, col_idx_or_cols2d, bcodes2d, bws, v, nnz: int, n_rows: int, W: int,
-    use_pg: bool,
-):
-    """CSR matvec with the boundary diff on the windowed monotone take.
-
-    ``bounded_segment_sum``'s two ``jnp.take`` calls at the (n+1,) indptr
-    run element-serial in XLA (~13 ns/element — 6+ ms at 3M rows); the
-    indptr is monotone, so one windowed take + adjacent diff replaces
-    them (reference walker: ``tabmat/ext/sparse.pyx:79-140``).
-    """
-    return _csr_matvec_window(
-        data, col_idx_or_cols2d, bcodes2d, bws, v, nnz, n_rows, W, use_pg
-    )
-
-
-from functools import partial as _partial  # noqa: E402
-
-
-@_partial(jax.jit, static_argnames=("nnz", "n_rows", "W", "use_pg"))
-def _csr_matvec_window(data, col_ref, bcodes2d, bws, v, nnz, n_rows, W, use_pg):
-    from . import pallas_gather, pallas_window_take
-
-    if use_pg:
-        g = pallas_gather.table_gather(v, col_ref, nnz)
-    else:
-        g = jnp.take(v, col_ref)
-    t = data * g
-    csum = jnp.cumsum(t)
-    padded = jnp.concatenate([jnp.zeros((1,), dtype=csum.dtype), csum])
-    if padded.dtype == jnp.float64:
-        b = pallas_window_take._take_f64(padded, bcodes2d, bws, n_rows + 1, W)
-    else:
-        b = pallas_window_take._take_f32(padded, bcodes2d, bws, n_rows + 1, W)
-    return b[1:] - b[:-1]
-
-
-def csr_tmv_window(data_csr, rcodes2d, rws, col_codes_col, v, nnz: int, k: int, W: int):
-    """CSR transpose-matvec: windowed ``v[row]`` gather + one-hot segsum.
-
-    nnz walked in row-major order have MONOTONE row ids — the windowed
-    take gathers ``v[row]`` in ~W passes/tile instead of walking all
-    ceil(n/128) table rows; the per-column reduction is the exact MXU
-    one-hot segment-sum (``pallas_segsum``), no scatter anywhere
-    (reference walker: ``tabmat/ext/sparse.pyx:142-199``).
-    """
-    return _csr_tmv_window(data_csr, rcodes2d, rws, col_codes_col, v, nnz, k, W)
-
-
-@_partial(jax.jit, static_argnames=("nnz", "k", "W"))
-def _csr_tmv_window(data_csr, rcodes2d, rws, col_codes_col, v, nnz, k, W):
-    from . import pallas_segsum, pallas_window_take
-
-    if v.dtype == jnp.float64:
-        g = pallas_window_take._take_f64(v, rcodes2d, rws, nnz, W)
-    else:
-        g = pallas_window_take._take_f32(v, rcodes2d, rws, nnz, W)
-    vals = data_csr * g
-    return pallas_segsum.segsum_auto(vals, col_codes_col, k)
 
 
 @jax.jit

@@ -9,7 +9,7 @@ arrays + static structure, exposing traceable ``@`` and ``.T @`` so
 ``tabmat_tpu.glm.irls_step`` works on it unchanged.
 
 Block math (scatter-free, sharding-friendly — rows may shard over 'dp'):
-- dense:        MXU contraction
+- dense:        contraction at pinned full precision
 - sparse:       CSR/CSC boundary-segmented cumsums
 - categorical:  gather / SegmentPlan cumsum
 - standardized: inner ops + rank-1 shift/mult corrections
@@ -18,6 +18,8 @@ Block math (scatter-free, sharding-friendly — rows may shard over 'dp'):
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..ops import dense_ops, sparse_ops
 
 
 class _Block:
@@ -37,8 +39,7 @@ def _stack_categoricals(cat_pairs, n_rows: int) -> _Block:
     """Merge several categorical blocks into ONE flat pseudo-categorical.
 
     Per-iteration kernel-launch count then stays constant in the number of
-    categorical blocks (measured ~30 ms/CG-iteration of pure launch overhead
-    on the target runtime with per-block kernels):
+    categorical blocks:
 
     - matvec: one padded gather over stacked codes (invalid codes point at
       the zero pad), reshaped (C, n) and summed;
@@ -46,21 +47,16 @@ def _stack_categoricals(cat_pairs, n_rows: int) -> _Block:
       one global cumsum (prefix offsets cancel in the boundary differences),
       one start/end boundary gather.
     """
-    from ..ops import pallas_segsum
-
     codes_parts, perm_parts, starts_parts, ends_parts, pos_parts = [], [], [], [], []
-    seg_cols = {}
     local_off = 0
     flat_off = 0
     total_width = sum(m.shape[1] for m, _ in cat_pairs)
-    for ci, (m, positions) in enumerate(cat_pairs):
+    for m, positions in cat_pairs:
         eff = m._eff_codes_np
         codes_parts.append(
             np.where(eff >= 0, eff + local_off, total_width).astype(np.int32)
         )
         plan = m.plan
-        if plan.codes_col is not None:
-            seg_cols[f"ccol_{ci}"] = plan.codes_col
         perm_parts.append(np.asarray(plan.perm, dtype=np.int64))
         bounds = np.asarray(plan.bounds, dtype=np.int64) + flat_off
         starts_parts.append(bounds[:-1])
@@ -69,31 +65,21 @@ def _stack_categoricals(cat_pairs, n_rows: int) -> _Block:
         local_off += m.shape[1]
         flat_off += m.shape[0]
 
-    codes_flat = np.concatenate(codes_parts)
     arrays = {
-        "codes": jnp.asarray(codes_flat),
+        "codes": jnp.asarray(np.concatenate(codes_parts)),
         "perm": jnp.asarray(np.concatenate(perm_parts)),
         "starts": jnp.asarray(np.concatenate(starts_parts)),
         "ends": jnp.asarray(np.concatenate(ends_parts)),
     }
-    from ..ops import pallas_gather
-
-    if pallas_gather.supported(total_width, np.float64):
-        # structural (R, 128) code layout for the Pallas table-gather matvec
-        # (the pad sentinel total_width gathers an exact zero either way)
-        arrays["codes2d"] = jnp.asarray(pallas_gather.build_codes2d(codes_flat))
-    arrays.update(seg_cols)
     # cross-pair plans for the explicit design sandwich (built when the
     # product of widths is bounded — the same feasibility as the sandwich)
     widths = tuple(m.shape[1] for m, _ in cat_pairs)
-    xwins = ()
     if all(
         w1 * w2 <= (1 << 24)
         for a, w1 in enumerate(widths)
         for w2 in widths[a + 1 :]
     ):
         from .. import _native
-        from ..ops import pallas_window_take
 
         for a in range(len(cat_pairs)):
             for b in range(a + 1, len(cat_pairs)):
@@ -105,31 +91,12 @@ def _stack_categoricals(cat_pairs, n_rows: int) -> _Block:
                 )
                 arrays[f"xperm_{a}_{b}"] = jnp.asarray(perm)
                 arrays[f"xbounds_{a}_{b}"] = jnp.asarray(bounds)
-                if pallas_segsum.supported_any(widths[a] * widths[b], n=len(combined)):
-                    arrays[f"xccol_{a}_{b}"] = jnp.asarray(
-                        pallas_segsum.build_codes_col(
-                            np.asarray(combined, dtype=np.int32)
-                        )
-                    )
-                elif pallas_window_take.supported(np.float64):
-                    # wide cross (w1·w2 past the one-hot kernels): the
-                    # boundary gathers at (w1·w2+1,) sorted bounds are the
-                    # dominant cost of the cumsum fallback — plan a
-                    # windowed monotone take for them (TPU only: the take
-                    # is a Pallas kernel, CPU/dryrun keep the XLA path)
-                    bplan = pallas_window_take.build_plan(
-                        bounds, src_len=len(combined) + 1
-                    )
-                    if bplan is not None:
-                        arrays[f"xbcodes_{a}_{b}"] = jnp.asarray(bplan.codes2d)
-                        arrays[f"xbws_{a}_{b}"] = jnp.asarray(bplan.ws)
-                        xwins += ((a, b, bplan.window),)
     return _Block(
         "catstack",
         arrays,
         total_width,
         np.concatenate(pos_parts),
-        meta=(widths, xwins),
+        meta=(widths,),
     )
 
 
@@ -192,8 +159,7 @@ class DeviceDesign:
         order = np.concatenate([b.positions for b in blocks])
         self._gather_v = jnp.asarray(np.asarray(order, dtype=np.int32))
         # blocks laid out in global column order (every from_df/benchmark
-        # design): the placement gathers are identities — skip them, the
-        # (k, k) column gather in particular is element-serial on this TPU
+        # design): the placement gathers are identities — skip them
         self._identity_order = bool(
             np.array_equal(np.asarray(index_map), np.arange(n_cols))
         )
@@ -201,11 +167,8 @@ class DeviceDesign:
     def astype_float(self, dtype):
         """A view of the design with float leaves cast (ints untouched).
 
-        Used for mixed-precision inner CG: gathers/cumsums in f32 halve
-        traffic and skip f64 emulation, while the outer gradient stays f64.
-        The exact-f64 Ozaki slice caches only make sense at f64 — when
-        downcasting they are dropped (blindly casting their bf16 slices
-        would both break exactness bookkeeping and double their memory).
+        Used for the mixed-precision inner CG: gathers/cumsums in f32 halve
+        the traffic, while the outer gradient stays f64.
         """
         if jnp.dtype(dtype) == jnp.float64:
             new_blocks = self.blocks
@@ -218,7 +181,6 @@ class DeviceDesign:
                         if jnp.issubdtype(v.dtype, jnp.floating)
                         else v
                         for k, v in b.arrays.items()
-                        if not k.startswith("ozk_")
                     },
                     b.width,
                     b.positions,
@@ -244,13 +206,10 @@ class DeviceDesign:
         """Place the design's leaves on a device mesh — the user multichip path.
 
         Everything row-indexed shards over the ``rows`` mesh axis (or an axis
-        tuple, e.g. ``("dcn", "dp")`` for a two-level DCN×ICI mesh); dense
-        design columns optionally shard over ``dense_cols``; small structural
-        state replicates.  The returned design drops Pallas-only structural
-        arrays (``codes2d``/``ccol_*``) — ``pallas_call`` is not partitionable
-        by GSPMD, so the sharded step runs the pure-jnp formulations, whose
-        reductions XLA turns into per-shard partials + psum over ICI
-        (explicit shard_map variants live in ``parallel.shard_ops``).
+        tuple); dense design columns optionally shard over ``dense_cols``;
+        small structural state replicates.  XLA turns the reductions into
+        per-shard partials + an all-reduce across the devices (explicit
+        shard_map variants live in ``parallel.shard_ops``).
 
         The result feeds ``glm.irls_step``/``fit_glm`` unchanged: the step
         jit-compiles against the leaf shardings inside ``with mesh:``.
@@ -258,7 +217,6 @@ class DeviceDesign:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         rows_spec = rows if isinstance(rows, tuple) else (rows,)
-        n = self.shape[0]
         n_row_shards = int(np.prod([mesh.shape[a] for a in rows_spec]))
 
         def put(x, *spec):
@@ -271,29 +229,8 @@ class DeviceDesign:
         for b in self.blocks:
             arrs = {}
             for key, v in b.arrays.items():
-                if key == "codes2d" or key.startswith(
-                    ("ccol", "xccol", "xbcodes", "xbws")
-                ) or key in ("csr_bcodes", "csr_bws", "csc_bcodes", "csc_bws"):
-                    continue  # Pallas-only layouts: see docstring
                 if b.kind == "dense":
-                    if key == "X":
-                        arrs[key] = rowdim(v, dense_cols)
-                    elif key == "ozk_QXT":
-                        # (S, k, n): row axis last — shard it when aligned
-                        arrs[key] = (
-                            put(v, None, None, rows_spec)
-                            if v.shape[2] % n_row_shards == 0
-                            else put(v)
-                        )
-                    elif key == "ozk_QX":
-                        # (S, nc, CHUNK, k): rows chunked on axis 1
-                        arrs[key] = (
-                            put(v, None, rows_spec)
-                            if v.shape[1] % n_row_shards == 0
-                            else put(v)
-                        )
-                    else:
-                        arrs[key] = put(v)
+                    arrs[key] = rowdim(v, dense_cols)
                 elif b.kind == "sparse":
                     # nnz-indexed leaves do not align with row shards;
                     # replicate (CSR/CSC cumsums stay local per device)
@@ -340,104 +277,27 @@ class DeviceDesign:
             inner.mult = None if mat.mult is None else jnp.asarray(mat.mult)
             return inner
 
-        def block_of(m, positions, allow_mirror: bool = True) -> _Block:
+        def block_of(m, positions) -> _Block:
             if isinstance(m, DenseMatrix):
-                arrays = {"X": m.unpack()}
-                # structural Ozaki slice caches ride along as pytree leaves:
-                # inside a jitted IRLS step they turn the dense matvec from
-                # a ~92 ms emulated-f64 dot into a ~1.6 ms bf16-MXU pass
-                if m._ozaki_eligible():
-                    QXT, eXT = m._get_ozaki_cache_T()
-                    QX, eX = m._get_ozaki_cache()
-                    arrays.update(
-                        ozk_QXT=QXT, ozk_eXT=eXT, ozk_QX=QX, ozk_eX=eX
-                    )
-                pc = m._get_plane_cache()
-                meta = ()
-                if pc is not None:
-                    from ..ops.pallas_sandwich_v3 import PackedPlaneCache
-                    from ..ops.pallas_sandwich_v4 import PlaneCacheV4
-                    from ..ops.pallas_sandwich_v5 import PlaneCacheV5
-
-                    arrays.update(
-                        pln_xsh=pc.xsh, pln_xsl=pc.xsl, pln_exps=pc.exps
-                    )
-                    if isinstance(pc, PlaneCacheV5):
-                        arrays.update(pln_bstk=pc.bstk)
-                        meta = ("pln_v5", pc.n, pc.k, pc.G)
-                    elif isinstance(pc, PlaneCacheV4):
-                        arrays.update(pln_bstk=pc.bstk)
-                        meta = ("pln_v4", pc.n, pc.k, pc.G)
-                    elif isinstance(pc, PackedPlaneCache):
-                        # static packing descriptor rides in the meta slot
-                        meta = ("pln_packed", pc.n, pc.k, pc.G)
-                return _Block("dense", arrays, m.shape[1], positions, meta)
+                return _Block("dense", {"X": m.unpack()}, m.shape[1], positions)
             if isinstance(m, SparseMatrix):
-                mirror = m._mirror_ozaki_caches() if allow_mirror else None
-                if mirror is not None:
-                    # narrow sparse rides the MXU as its exact dense mirror
-                    QX, eX, QXT, eXT = mirror
-                    return _Block(
-                        "dense",
-                        {
-                            "X": m._dense_mirror(),
-                            "ozk_QXT": QXT, "ozk_eXT": eXT,
-                            "ozk_QX": QX, "ozk_eX": eX,
-                        },
-                        m.shape[1],
-                        positions,
-                    )
                 data_r, cols_r, bounds_r = m._csr_parts()
                 data_c, rows_c, bounds_c = m._csc_parts()
                 arrays = {
                     "csr_data": data_r, "csr_cols": cols_r, "csr_bounds": bounds_r,
                     "csc_data": data_c, "csc_rows": rows_c, "csc_bounds": bounds_c,
                 }
-                meta = (None, None)
-                from ..ops import pallas_window_take as pwt
-
-                if pwt.supported(np.float64):
-                    # windowed monotone takes for the indptr boundary
-                    # diffs (the element-serial XLA takes dominate at
-                    # benchmark scales); TPU-gated — dryrun keeps XLA
-                    nnz1 = int(m._array.nnz) + 1
-                    rplan = pwt.build_plan(
-                        np.asarray(m.array_csr.indptr), src_len=nnz1
-                    )
-                    cplan = pwt.build_plan(
-                        np.asarray(m._array.indptr), src_len=nnz1
-                    )
-                    wr = wc = None
-                    if rplan is not None:
-                        arrays["csr_bcodes"] = jnp.asarray(rplan.codes2d)
-                        arrays["csr_bws"] = jnp.asarray(rplan.ws)
-                        wr = rplan.window
-                    if cplan is not None:
-                        arrays["csc_bcodes"] = jnp.asarray(cplan.codes2d)
-                        arrays["csc_bws"] = jnp.asarray(cplan.ws)
-                        wc = cplan.window
-                    meta = (wr, wc)
                 # pair-expansion plan for the explicit design sandwich
                 # (None when over budget — supports_sandwich then gates)
                 pp = m._pair_sandwich_parts()
                 if pp is not None:
                     arrays["pp_prod"], arrays["pp_rows"], arrays["pp_bounds"] = pp
-                return _Block(
-                    "sparse",
-                    arrays,
-                    m.shape[1],
-                    positions,
-                    meta=meta,
-                )
+                return _Block("sparse", arrays, m.shape[1], positions)
             if isinstance(m, CategoricalMatrix):
                 plan = m.plan
                 arrays = {
                     "codes": m.eff_codes, "perm": plan.perm, "bounds": plan.bounds,
                 }
-                if m.codes2d is not None:
-                    arrays["codes2d"] = m.codes2d
-                if plan.codes_col is not None:
-                    arrays["ccol_0"] = plan.codes_col
                 return _Block("cat", arrays, m.shape[1], positions)
             raise TypeError(f"Cannot convert {type(m).__name__} to a DeviceDesign")
 
@@ -447,19 +307,10 @@ class DeviceDesign:
             other_pairs = [
                 (m, i) for m, i in pairs if not isinstance(m, CategoricalMatrix)
             ]
-            # a sparse block only densifies into a mirror when it would be
-            # the design's ONE dense unit; next to a real dense block it
-            # stays sparse-kind (pair/cross segment plans, no second MXU
-            # operand) so the explicit sandwich grid covers the mix
-            has_dense = any(isinstance(m, DenseMatrix) for m, _ in other_pairs)
             blocks = []
             sparse_kind = []  # (block, matrix) needing cat cross plans
             for m, idx in other_pairs:
-                b = block_of(
-                    m,
-                    idx,
-                    allow_mirror=not (has_dense and isinstance(m, SparseMatrix)),
-                )
+                b = block_of(m, idx)
                 if b.kind == "sparse":
                     sparse_kind.append((b, m))
                 blocks.append(b)
@@ -482,44 +333,18 @@ class DeviceDesign:
     def _block_matvec(self, block: _Block, v: jax.Array) -> jax.Array:
         a = block.arrays
         if block.kind == "dense":
-            if "ozk_QXT" in a and v.dtype == jnp.float64 and v.ndim == 1:
-                from ..ops import ozaki
-
-                return ozaki.matvec_cached_T(
-                    a["ozk_QXT"], a["ozk_eXT"], v, n=self.shape[0]
-                )
-            return a["X"] @ v
+            return dense_ops.matmul(a["X"], v)
         if block.kind == "sparse":
             t = a["csr_data"] * jnp.take(v, a["csr_cols"])
             csum = jnp.cumsum(t)
             p = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum])
-            if "csr_bcodes" in a and p.dtype in (jnp.float32, jnp.float64):
-                from ..ops import pallas_window_take as pwt
-
-                take = pwt._take_f64 if p.dtype == jnp.float64 else pwt._take_f32
-                b = take(
-                    p, a["csr_bcodes"], a["csr_bws"], self.shape[0] + 1,
-                    block.meta[0],
-                )
-                return b[1:] - b[:-1]
             return jnp.take(p, a["csr_bounds"][1:]) - jnp.take(p, a["csr_bounds"][:-1])
         if block.kind == "catstack":
-            n_cat = a["codes"].shape[0]
-            if "codes2d" in a and v.dtype in (jnp.float32, jnp.float64):
-                from ..ops import pallas_gather
-
-                # lane-shuffle table gather (pad sentinel gathers exact 0)
-                g = pallas_gather.table_gather(v, a["codes2d"], n_cat)
-            else:
-                # stacked cats: one padded gather, reshape (C, n), one reduce
-                vcp = jnp.concatenate([v, jnp.zeros((1,), v.dtype)])
-                g = jnp.take(vcp, a["codes"])
+            # stacked cats: one padded gather, reshape (C, n), one reduce
+            vcp = jnp.concatenate([v, jnp.zeros((1,), v.dtype)])
+            g = jnp.take(vcp, a["codes"])
             return g.reshape(-1, self.shape[0]).sum(axis=0)
         # categorical: gather (negative codes contribute zero)
-        if "codes2d" in a and v.dtype in (jnp.float32, jnp.float64):
-            from ..ops import pallas_gather
-
-            return pallas_gather.table_gather(v, a["codes2d"], self.shape[0])
         codes = a["codes"]
         valid = codes >= 0
         g = jnp.take(v, jnp.clip(codes, 0, block.width - 1))
@@ -528,51 +353,19 @@ class DeviceDesign:
     def _block_tmv(self, block: _Block, r: jax.Array) -> jax.Array:
         a = block.arrays
         if block.kind == "dense":
-            from ..ops import dense_ops
-
-            if "ozk_QX" in a and r.dtype == jnp.float64 and r.ndim == 1:
-                from ..ops import ozaki
-
-                return ozaki.transpose_matvec_cached(a["ozk_QX"], a["ozk_eX"], r)
             return dense_ops.transpose_matvec(a["X"], r)
         if block.kind == "sparse":
             t = a["csc_data"] * jnp.take(r, a["csc_rows"])
             csum = jnp.cumsum(t)
             p = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum])
-            if "csc_bcodes" in a and p.dtype in (jnp.float32, jnp.float64):
-                from ..ops import pallas_window_take as pwt
-
-                take = pwt._take_f64 if p.dtype == jnp.float64 else pwt._take_f32
-                b = take(
-                    p, a["csc_bcodes"], a["csc_bws"], block.width + 1,
-                    block.meta[1],
-                )
-                return b[1:] - b[:-1]
             return jnp.take(p, a["csc_bounds"][1:]) - jnp.take(p, a["csc_bounds"][:-1])
         if block.kind == "catstack":
-            widths = block.meta[0]
-            if r.dtype in (jnp.float32, jnp.float64) and all(
-                f"ccol_{ci}" in a for ci in range(len(widths))
-            ):
-                from ..ops import pallas_segsum
-
-                # per-cat MXU one-hot segment sums (no n-length perm gather)
-                return jnp.concatenate(
-                    [
-                        pallas_segsum.segsum_auto(r, a[f"ccol_{ci}"], wc)
-                        for ci, wc in enumerate(widths)
-                    ]
-                )
             # one gather through all cats' perms, one global cumsum (prefix
             # offsets cancel in the start/end differences), one boundary take
             g = jnp.take(r, a["perm"])
             csum = jnp.cumsum(g)
             p = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum])
             return jnp.take(p, a["ends"]) - jnp.take(p, a["starts"])
-        if "ccol_0" in a and r.dtype in (jnp.float32, jnp.float64):
-            from ..ops import pallas_segsum
-
-            return pallas_segsum.segsum_auto(r, a["ccol_0"], block.width)
         g = jnp.take(r, a["perm"])
         csum = jnp.cumsum(g)
         p = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum])
@@ -588,7 +381,7 @@ class DeviceDesign:
             out = out + self._block_matvec(b, v_blocks[off : off + b.width])
             off += b.width
         if self.shift is not None:
-            out = out + jnp.dot(self.shift, v)
+            out = out + dense_ops.matmul(self.shift, v)
         return out
 
     def transpose_matvec(self, r: jax.Array) -> jax.Array:
@@ -651,7 +444,6 @@ class DeviceDesign:
         covers dense×sparse×categorical mixes (the primary ``from_df``
         output shape) in one traceable program with no host assembly.
         """
-        from ..ops import dense_ops, pallas_segsum, sparse_ops
 
         def seg_sum(perm, starts, ends, vals):
             csum = jnp.cumsum(jnp.take(vals, perm))
@@ -664,10 +456,9 @@ class DeviceDesign:
             return jnp.take(p, bounds[1:]) - jnp.take(p, bounds[:-1])
 
         n = self.shape[0]
-        w_seg_ok = w.dtype in (jnp.float32, jnp.float64)
 
         # --- expand blocks into units (unit order == column concat order).
-        # cat info = (perm, starts, ends, width, ccol, ci) with ci the
+        # cat info = (perm, starts, ends, width, ci) with ci the
         # global cat ordinal keying the sparse blocks' xs{ci}_* cross plans
         units = []
         cross = {}  # (unit_i, unit_j) -> same-stack cat×cat plan
@@ -682,16 +473,15 @@ class DeviceDesign:
                 units.append(
                     ("cat", b,
                      (b.arrays["perm"], bounds[:-1], bounds[1:], b.width,
-                      b.arrays.get("ccol_0"), ci_counter))
+                      ci_counter))
                 )
                 ci_counter += 1
             else:  # catstack
-                widths, xwins = b.meta
-                xwin_map = {(a_, c_): w_ for a_, c_, w_ in xwins}
+                (widths,) = b.meta
                 base = len(units)
                 off_flat = 0
                 start_off = 0
-                for ci, wc in enumerate(widths):
+                for wc in widths:
                     # the stored starts/ends carry the flat c·n stream offset
                     # (for the stacked tmv); remove it for per-cat use
                     units.append(
@@ -700,7 +490,6 @@ class DeviceDesign:
                           b.arrays["starts"][start_off : start_off + wc] - off_flat,
                           b.arrays["ends"][start_off : start_off + wc] - off_flat,
                           wc,
-                          b.arrays.get(f"ccol_{ci}"),
                           ci_counter))
                     )
                     ci_counter += 1
@@ -711,10 +500,6 @@ class DeviceDesign:
                         cross[(base + a, base + c)] = (
                             b.arrays[f"xperm_{a}_{c}"],
                             b.arrays[f"xbounds_{a}_{c}"],
-                            b.arrays.get(f"xccol_{a}_{c}"),
-                            b.arrays.get(f"xbcodes_{a}_{c}"),
-                            b.arrays.get(f"xbws_{a}_{c}"),
-                            xwin_map.get((a, c)),
                         )
 
         # --- shared dense precompute -------------------------------------
@@ -725,52 +510,9 @@ class DeviceDesign:
 
         # --- per-cell computations ---------------------------------------
 
-        def dense_diag(b):
-            da = b.arrays
-            if "pln_xsh" in da and Xd.dtype == jnp.float64:
-                from ..ops import pallas_sandwich_v3
-
-                dmeta = b.meta
-                if dmeta and dmeta[0] == "pln_v5":
-                    from ..ops import pallas_sandwich_v5
-
-                    _, pn, pk, pG = dmeta
-                    return pallas_sandwich_v5._sandwich_v5_jit(
-                        da["pln_xsh"], da["pln_xsl"], da["pln_bstk"],
-                        da["pln_exps"], w, pn, pk, pG,
-                    )
-                if dmeta and dmeta[0] == "pln_v4":
-                    from ..ops import pallas_sandwich_v4
-
-                    _, pn, pk, pG = dmeta
-                    return pallas_sandwich_v4._sandwich_v4_jit(
-                        da["pln_xsh"], da["pln_xsl"], da["pln_bstk"],
-                        da["pln_exps"], w, pn, pk, pG,
-                    )
-                if dmeta and dmeta[0] == "pln_packed":
-                    _, pn, pk, pG = dmeta
-                    return pallas_sandwich_v3._sandwich_v3_packed_jit(
-                        da["pln_xsh"], da["pln_xsl"], da["pln_exps"], w,
-                        pn, pk, pG,
-                    )
-                return pallas_sandwich_v3.sandwich_v3(
-                    da["pln_xsh"], da["pln_xsl"], da["pln_exps"], w
-                )
-            if "ozk_QX" in da and Xd.dtype == jnp.float64:
-                from ..ops import ozaki
-
-                return ozaki.sandwich_cached(Xd, w, (da["ozk_QX"], da["ozk_eX"]))
-            if Xd.dtype == jnp.float64 and n > dense_ops._F64_CHUNK:
-                return dense_ops._sandwich_f64_chunked(Xd, w)
-            return dense_ops._sandwich_jnp(Xd, w)
-
         def cat_diag(info):
-            perm, starts, ends, wc, ccol, _ = info
-            if ccol is not None and w_seg_ok:
-                diag = pallas_segsum.segsum_auto(w, ccol, wc)
-            else:
-                diag = seg_sum(perm, starts, ends, w)
-            return jnp.diag(diag)
+            perm, starts, ends, _, _ = info
+            return jnp.diag(seg_sum(perm, starts, ends, w))
 
         def sparse_diag(b):
             a = b.arrays
@@ -781,13 +523,7 @@ class DeviceDesign:
 
         def dense_cat_cell(info):
             """(wc, kd) cat×dense cross: segment-sum of w-scaled dense rows."""
-            perm, starts, ends, wc, ccol, _ = info
-            if (
-                ccol is not None
-                and wXd.dtype in (jnp.float32, jnp.float64)
-                and kd * 7 <= 128
-            ):
-                return pallas_segsum.segsum_2d(wXd, ccol, wc)
+            perm, starts, ends, _, _ = info
             g = jnp.take(wXd, perm, axis=0)
             csum = jnp.cumsum(g, axis=0)
             p = jnp.concatenate([jnp.zeros((1, kd), csum.dtype), csum], axis=0)
@@ -802,7 +538,7 @@ class DeviceDesign:
 
         def sparse_cat_cell(b, info):
             """(wc, ks) cat×sparse cross from the combined-key nnz plan."""
-            wc, ci = info[3], info[5]
+            wc, ci = info[3], info[4]
             a = b.arrays
             vals = a[f"xs{ci}_prod"] * jnp.take(w, a[f"xs{ci}_rows"])
             flat = bounded(vals, a[f"xs{ci}_bounds"])
@@ -813,21 +549,8 @@ class DeviceDesign:
             if (i, j) not in cross:
                 raise NotImplementedError("missing cross plan")
             wi, wj = info_i[3], info_j[3]
-            xperm, xbounds, xccol, xbcodes, xbws, xwin = cross[(i, j)]
-            if xccol is not None and w_seg_ok:
-                flat = pallas_segsum.segsum_auto(w, xccol, wi * wj)
-            elif xbcodes is not None and w_seg_ok:
-                # wide cross: windowed monotone take at the sorted
-                # (wi·wj+1,) bounds replaces two element-serial XLA takes
-                from ..ops import pallas_window_take as pwt
-
-                csum = jnp.cumsum(jnp.take(w, xperm))
-                p = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum])
-                take = pwt._take_f64 if p.dtype == jnp.float64 else pwt._take_f32
-                bvals = take(p, xbcodes, xbws, wi * wj + 1, xwin)
-                flat = bvals[1:] - bvals[:-1]
-            else:
-                flat = seg_sum(xperm, xbounds[:-1], xbounds[1:], w)
+            xperm, xbounds = cross[(i, j)]
+            flat = seg_sum(xperm, xbounds[:-1], xbounds[1:], w)
             return flat.reshape(wi, wj)
 
         # --- assemble the unit grid (upper triangle computed, mirrored) --
@@ -838,7 +561,7 @@ class DeviceDesign:
                 kind_j, b_j, info_j = units[j]
                 if i == j:
                     if kind_i == "dense":
-                        cells[i][i] = dense_diag(b_i)
+                        cells[i][i] = dense_ops.sandwich(Xd, w)
                     elif kind_i == "sparse":
                         cells[i][i] = sparse_diag(b_i)
                     else:

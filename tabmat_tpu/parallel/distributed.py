@@ -4,13 +4,13 @@ One jittable function covering the full tabmat workload — a SplitMatrix-like
 design with dense + sparse(CSR/CSC) + categorical blocks — written directly
 against the scatter-free device kernels so XLA/GSPMD can partition it:
 
-- rows (data axis) shard over 'dp': sandwich/matvec partials psum over ICI;
+- rows (data axis) shard over 'dp': sandwich/matvec partials all-reduce;
 - dense design columns may shard over 'mp';
 - categorical reductions ride the SegmentPlan gather/cumsum (the permutation
   gather becomes an all-to-all; the cumsum a cross-shard scan — both XLA
   collectives, no scatter).
 
-Used by ``__graft_entry__.dryrun_multichip`` and the multi-chip tests.
+Used by ``chip_smoke.py --four-cards`` and the multi-device tests.
 """
 
 from functools import partial
@@ -19,6 +19,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..ops import dense_ops
 
 
 class MixedDesign(NamedTuple):
@@ -50,7 +52,7 @@ def design_matvec(dz: MixedDesign, v: jax.Array) -> jax.Array:
     kd = dz.dense.shape[1]
     ks = dz.sp_csc_bounds.shape[0] - 1
     vd, vs, vc = v[:kd], v[kd : kd + ks], v[kd + ks :]
-    out = dz.dense @ vd
+    out = dense_ops.matmul(dz.dense, vd)
     out = out + _bounded_sum(
         dz.sp_csr_data * jnp.take(vs, dz.sp_csr_cols), dz.sp_csr_bounds
     )
@@ -60,7 +62,7 @@ def design_matvec(dz: MixedDesign, v: jax.Array) -> jax.Array:
 
 def design_transpose_matvec(dz: MixedDesign, r: jax.Array) -> jax.Array:
     """``Xᵀ @ r`` for the mixed design → global column layout."""
-    gd = dz.dense.T @ r
+    gd = dense_ops.matmul(dz.dense.T, r)
     gs = _bounded_sum(
         dz.sp_csc_data * jnp.take(r, dz.sp_csc_rows), dz.sp_csc_bounds
     )

@@ -1,12 +1,11 @@
 """Device-mesh helpers for multi-chip tabmat-tpu.
 
 The reference has no distributed machinery (single-node OpenMP; SURVEY §2).
-The TPU-native scale-out story is simple and powerful because every core op
-is a **linear reduction over rows**: shard the row dimension across chips
-('dp' axis) and every sandwich / transpose-matvec becomes per-shard partial
-results + one psum of a small (k,)- or (k,k)-shaped output over ICI.  Dense
-column blocks can additionally shard their column axis ('mp') for very wide
-designs.
+Scale-out is simple because every core op is a **linear reduction over
+rows**: shard the row dimension across devices ('dp' axis) and every
+sandwich / transpose-matvec becomes per-shard partial results + one
+all-reduce of a small (k,)- or (k,k)-shaped output.  Dense column blocks
+can additionally shard their column axis ('mp') for very wide designs.
 """
 
 from typing import Optional, Sequence
@@ -29,28 +28,6 @@ def make_mesh(
         raise ValueError(f"n_devices={n_devices} not divisible by mp={mp}")
     dp = n_devices // mp
     dev_array = np.asarray(devices[:n_devices]).reshape(dp, mp)
-    return Mesh(dev_array, axis_names=tuple(axis_names))
-
-
-def make_mesh_2level(
-    dcn: int,
-    dp: int,
-    mp: int = 1,
-    axis_names: Sequence[str] = ("dcn", "dp", "mp"),
-) -> Mesh:
-    """Two-level (DCN × ICI) mesh: ``dcn`` slices × ``dp×mp`` chips each.
-
-    Row shards use ``("dcn", "dp")`` so each slice reduces over its own ICI
-    first; the cross-slice combine is one (k,)/(k, k)-sized psum over DCN —
-    the only traffic that leaves a slice.  ``jax.devices()`` ordering places
-    adjacent devices in the same slice, matching how multi-slice TPU jobs
-    enumerate their chips.
-    """
-    devices = jax.devices()
-    need = dcn * dp * mp
-    if len(devices) < need:
-        raise ValueError(f"need {need} devices, have {len(devices)}")
-    dev_array = np.asarray(devices[:need]).reshape(dcn, dp, mp)
     return Mesh(dev_array, axis_names=tuple(axis_names))
 
 

@@ -2,10 +2,9 @@
 
 GSPMD auto-partitioning handles the core ops already (see
 ``tests/test_multichip.py``); this module provides the *explicit* SPMD
-formulation — per-shard partials + one ``psum`` over ICI — which is the
-required form for kernels GSPMD cannot partition (Pallas calls) and makes
-the communication pattern auditable: a sandwich is a row reduction, so the
-only collective is a (k, k)-sized psum per op.
+formulation — per-shard partials + one ``psum`` across the devices — which
+makes the communication pattern auditable: a sandwich is a row reduction,
+so the only collective is a (k, k)-sized psum per op.
 """
 
 from functools import partial
@@ -18,14 +17,15 @@ try:  # jax >= 0.8
 except ImportError:  # pragma: no cover - older jax
     from jax.experimental.shard_map import shard_map
 
+from ..ops import dense_ops
+
 
 def sharded_sandwich(X: jax.Array, d: jax.Array, mesh: Mesh) -> jax.Array:
     """``X.T @ diag(d) @ X`` with X, d sharded over mesh axis 'dp'.
 
-    Each shard computes its local sandwich (through the platform-appropriate
-    exact-f64 kernel) and the (k, k) partials are psum'd over ICI.
+    Each shard computes its local sandwich and the (k, k) partials are
+    psum'd across the devices.
     """
-    from ..ops import dense_ops
 
     @partial(
         shard_map,
@@ -34,7 +34,7 @@ def sharded_sandwich(X: jax.Array, d: jax.Array, mesh: Mesh) -> jax.Array:
         out_specs=P(),
     )
     def _kernel(X_local, d_local):
-        local = dense_ops._sandwich_jnp(X_local, d_local)
+        local = dense_ops.sandwich(X_local, d_local)
         return jax.lax.psum(local, axis_name="dp")
 
     return _kernel(X, d)
@@ -50,7 +50,9 @@ def sharded_transpose_matvec(X: jax.Array, v: jax.Array, mesh: Mesh) -> jax.Arra
         out_specs=P(),
     )
     def _kernel(X_local, v_local):
-        return jax.lax.psum(X_local.T @ v_local, axis_name="dp")
+        return jax.lax.psum(
+            dense_ops.transpose_matvec(X_local, v_local), axis_name="dp"
+        )
 
     return _kernel(X, v)
 
@@ -60,12 +62,9 @@ def sharded_segment_sum(
 ) -> jax.Array:
     """Categorical reduction with row-sharded values/codes.
 
-    Each shard bins its local rows with a *local* one-hot-free reduction
-    (sort-free: codes are already materialized per shard, so a local
-    fixed-size bincount via comparison matmul would be O(K·n); instead each
-    shard sorts locally and cumsum-reduces), then partials psum over ICI.
-    For simplicity and portability this uses a local sort per shard — the
-    shard-local argsort happens inside the jitted kernel.
+    Each shard sorts its local rows and cumsum-reduces them (a one-hot
+    comparison matmul would be O(K·n)), then the partials psum across the
+    devices.  The shard-local argsort happens inside the jitted kernel.
     """
 
     @partial(
@@ -86,75 +85,6 @@ def sharded_segment_sum(
         return jax.lax.psum(local, axis_name="dp")
 
     return _kernel(values, codes)
-
-
-def sharded_plane_sandwich(
-    cache,
-    d: jax.Array,
-    mesh: Mesh,
-    axis: str = "dp",
-    interpret: bool = False,
-) -> jax.Array:
-    """Row-sharded exact-f64 dense sandwich on the v4 Pallas kernel.
-
-    The fast-kernel analog of ``sharded_sandwich``: each shard runs the
-    int8 anti-diagonal Mosaic kernel (``ops.pallas_sandwich_v4``) over
-    its row slab of the structural plane cache, and ONE
-    (2·S_MAX, kpad, kpad) ``psum`` of the f64-promoted compensated
-    partials rides ICI before the replicated final combine.  Matches the
-    single-device ``sandwich_from_cache`` to f64 roundoff (partials are
-    exact per shard; only the f64 psum and combine round).
-
-    Build the cache with ``row_multiple=v4.SUB * n_shards`` so the row
-    slabs split evenly; ``interpret=True`` runs the kernel's pure-jax
-    interpretation (CPU meshes / tests).
-    """
-    from ..ops import pallas_sandwich_v4 as v4
-
-    n_shards = mesh.shape[axis]
-    n_pad = cache.xsh.shape[0]
-    if n_pad % (v4.SUB * n_shards):
-        raise ValueError(
-            f"plane cache rows ({n_pad}) must split into {n_shards} "
-            f"shards of whole {v4.SUB}-row grid steps; build the cache "
-            f"with row_multiple=SUB*n_shards"
-        )
-    # d-side prep is plain jnp (pallas_max=False picks the GSPMD-legal
-    # eA formulation): XLA partitions it over the sharded operands; the
-    # (G8, n_pad) d rows shard along their LANE axis (dim 1)
-    dhc, dlc, ra, eA, eD = v4._v4_prep(
-        cache.xsh, d, cache.n, cache.k, cache.G, pallas_max=False
-    )
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(
-            P(axis, None),
-            P(axis, None),
-            P(None, axis),
-            P(None, axis),
-            P(None, None),
-            P(axis, None),
-        ),
-        out_specs=P(None, None, None),
-        # pallas_call's out_shape carries no varying-mesh-axes note;
-        # correctness is by construction (psum below replicates)
-        check_vma=False,
-    )
-    def _kernel(xsh, xsl, dhc_l, dlc_l, ra_l, bstk):
-        parts = v4._v4_parts(
-            xsh, xsl, dhc_l, dlc_l, ra_l, bstk,
-            cache.k, cache.G, interpret=interpret,
-        )
-        tot = (
-            parts[: v4.S_MAX].astype(jnp.float64)
-            + parts[v4.S_MAX :].astype(jnp.float64)
-        )
-        return jax.lax.psum(tot, axis_name=axis)
-
-    tot = _kernel(cache.xsh, cache.xsl, dhc, dlc, ra, cache.bstk)
-    return v4._v4_combine(tot, eA, eD, cache.exps, cache.k, cache.G)
 
 
 def place_row_sharded(mesh: Mesh, *arrays):

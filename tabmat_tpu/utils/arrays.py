@@ -9,7 +9,7 @@ tabmat-tpu keeps a dual-calling-convention contract:
   is ``out + result`` and the caller rebinds (XLA may donate/alias buffers).
 
 This keeps the library drop-in usable for CPU/numpy GLM solvers while
-remaining composable inside jitted TPU programs.
+remaining composable inside jitted device programs.
 """
 
 from typing import Optional, Union
@@ -78,8 +78,8 @@ def rows_to_mask(rows: Optional[np.ndarray], n_rows: int, dtype) -> Optional[np.
     because each op is a linear reduction over rows.  Returns None when the
     restriction covers all rows (fast path: no mask multiply).
 
-    Built with numpy (not ``jnp .at[].set``) because XLA scatter lowering is
-    pathologically slow to compile on the target platform.
+    Built on the host with numpy: the row indices are host data, and the
+    mask ships to the device with the op's other operands.
     """
     if rows is None or len(rows) == n_rows:
         return None

@@ -4,7 +4,7 @@ Mirrors the eager-validation layer of the reference (``tabmat/util.py:6-116``):
 shape checks raise ``ValueError``/``TypeError`` before any device work, and
 ``rows``/``cols`` active-set arguments are normalized to int32 index arrays.
 
-TPU twist: restrictions are *kept on the host* as numpy arrays.  Downstream,
+Device twist: restrictions are *kept on the host* as numpy arrays.  Downstream,
 row restrictions are turned into 0/1 multiplicative masks (exact for every
 op, since all three core ops are linear row-reductions) and column
 restrictions are applied via gathers on the small column axis — both avoid

@@ -24,12 +24,23 @@ def test_cli_smoke():
             "--matrix_name", "dense,sparse",
             "--scale", "0.0001",
             "--n_iterations", "2",
+            "--rehearse",
             "--include_baseline",
         ],
     )
     assert result.exit_code == 0, result.output
     assert "tabmat_tpu" in result.output
     assert "numpy/scipy" in result.output
+    assert '"device_platform": "cpu"' in result.output
+    assert '"card": ' in result.output
+
+
+def test_cli_refuses_cpu_without_rehearse():
+    result = CliRunner().invoke(
+        run_all_benchmarks, ["--matrix_name", "dense", "--scale", "0.0001"]
+    )
+    assert result.exit_code != 0
+    assert "tabmat_tpu" not in result.output
 
 
 def test_cli_memory_and_standardized():
@@ -40,6 +51,7 @@ def test_cli_memory_and_standardized():
             "--matrix_name", "dense",
             "--scale", "0.0001",
             "--n_iterations", "2",
+            "--rehearse",
             "--bench_memory",
             "--standardized",
         ],
@@ -57,6 +69,7 @@ def test_cli_csv_and_visualize(tmp_path):
             "--matrix_name", "dense,sparse",
             "--scale", "0.0001",
             "--n_iterations", "2",
+            "--rehearse",
             "--include_baseline",
             "--output", csv_path,
         ],

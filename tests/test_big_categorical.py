@@ -1,6 +1,6 @@
 """Big-categorical / read-only-buffer regression battery.
 
-Analog of ``/root/reference/tests/test_big_categorical_matrix.py:10-114``:
+Analog of the reference's ``tests/test_big_categorical_matrix.py:10-114``:
 at ~800k rows × ~58k categories pandas hands out *read-only* code buffers,
 and every kernel (transpose_matvec, cross-sandwiches, multiply, tocsr) must
 accept them; cross-products between huge categoricals must route through

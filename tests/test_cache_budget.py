@@ -1,9 +1,8 @@
 """Global device-cache budget ledger (_config.cache_charge).
 
-The ledger itself is platform-independent; the TPU-only cache build sites
-consult it via ``cache_charge(bytes, owner)`` and fall back to their
-cache-free routes when refused (wired in models/dense.py and
-models/sparse.py — exercised on hardware by the routing suites).
+The ledger itself is platform-independent; cache build sites (the dense
+mirror in models/sparse.py) consult it via ``cache_charge(bytes, owner)``
+and fall back to their cache-free routes when refused.
 """
 
 import gc

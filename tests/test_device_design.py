@@ -215,11 +215,8 @@ def test_design_sandwich_sparse_two_cats_drop_first():
     np.testing.assert_allclose(np.asarray(design.sandwich(w)), ref, atol=1e-11)
 
 
-def test_design_sandwich_sparse_cat_no_dense(monkeypatch):
-    """A sparse block past the mirror budget stays sparse-kind and sandwiches."""
-    from tabmat_tpu.models.sparse import SparseMatrix
-
-    monkeypatch.setattr(SparseMatrix, "_MIRROR_OZAKI_MAX_ELEMENTS", 0)
+def test_design_sandwich_sparse_cat_no_dense():
+    """A sparse block without a dense block stays sparse-kind and sandwiches."""
     rng = np.random.default_rng(44)
     n = 150
     mat = tm.SplitMatrix(

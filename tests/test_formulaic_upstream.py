@@ -1,7 +1,7 @@
 """The formulaic upstream test battery, adapted to the native engine.
 
 The reference ends its formula suite with a vendored copy of formulaic's
-own test-suite (``/root/reference/tests/test_formula.py:999-1294``,
+own test-suite (``tests/test_formula.py:999-1294``,
 ``class TestFormulaicTests``).  tabmat-tpu's formula engine is own-written
 (formulaic is unavailable here), so this file adapts every one of those
 tests to the native surface: ``tm.from_formula`` plays the materializer,

@@ -1,8 +1,8 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh.
+"""Multi-device sharding tests on the 8-device virtual CPU mesh.
 
 Validates that row-sharded ('dp') and column-sharded ('mp') executions of
 the core ops and the full mixed-design IRLS step match single-device
-results — the sharding contract the driver's ``dryrun_multichip`` checks.
+results — the contract ``chip_smoke.py --four-cards`` checks on four GPUs.
 """
 
 import jax
@@ -109,20 +109,6 @@ def test_mixed_design_step_matches_single_device(mesh):
     np.testing.assert_allclose(np.asarray(res), np.asarray(ref), rtol=1e-8)
 
 
-def test_graft_entry_contract():
-    """The driver entry points execute end-to-end."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
-    import __graft_entry__ as g
-
-    fn, args = g.entry()
-    out = jax.jit(fn)(*args)
-    assert np.all(np.isfinite(np.asarray(out)))
-    if len(jax.devices()) >= 8:
-        g.dryrun_multichip(8)
-
-
 def test_shard_map_sandwich(mesh):
     from tabmat_tpu.parallel.shard_ops import place_row_sharded, sharded_sandwich
 
@@ -135,43 +121,6 @@ def test_shard_map_sandwich(mesh):
     np.testing.assert_allclose(
         np.asarray(S), (X_np * d_np[:, None]).T @ X_np, atol=1e-11
     )
-
-
-def test_shard_map_pallas_v4_sandwich(mesh):
-    """The v4 Pallas kernel itself under shard_map: per-shard int8
-    anti-diagonal kernel + one f64 psum matches the exact f64 sandwich."""
-    from tabmat_tpu.ops import pallas_sandwich_v4 as v4
-    from tabmat_tpu.parallel.shard_ops import (
-        place_row_sharded,
-        sharded_plane_sandwich,
-    )
-
-    rng = np.random.default_rng(12)
-    n, k = 5000, 7
-    X_np = rng.standard_normal((n, k)) * np.exp2(
-        rng.uniform(-6, 6, size=(1, k))
-    )
-    d_np = rng.random(n) * np.exp2(rng.uniform(-3, 3, size=n))
-    nsh = mesh.shape["dp"]
-    cache = v4.build_plane_cache(
-        jnp.asarray(X_np), row_multiple=v4.SUB * nsh
-    )
-    xsh, xsl, bstk = place_row_sharded(
-        mesh, cache.xsh, cache.xsl, cache.bstk
-    )
-    cache = cache._replace(xsh=xsh, xsl=xsl, bstk=bstk)
-    with mesh:
-        S = sharded_plane_sandwich(
-            cache, jnp.asarray(d_np), mesh, interpret=True
-        )
-    ref = (X_np * d_np[:, None]).T @ X_np
-    relerr = np.abs(np.asarray(S) - ref).max() / np.abs(ref).max()
-    assert relerr < 1e-13
-
-    # wrong row multiple is rejected, not silently mis-sharded
-    bad = v4.build_plane_cache(jnp.asarray(X_np[:100]))
-    with pytest.raises(ValueError, match="row_multiple"):
-        sharded_plane_sandwich(bad, jnp.asarray(d_np[:100]), mesh)
 
 
 def test_shard_map_tmv(mesh):
@@ -205,6 +154,17 @@ def test_shard_map_segment_sum(mesh):
 
 def test_user_path_sharded_irls(mesh):
     """SplitMatrix -> DeviceDesign.shard -> irls_step: the user multichip path."""
+    _check_user_path(mesh, dense_cols="mp")
+
+
+def test_user_path_rows_only_layout():
+    """The same step with rows over all 8 devices and replicated columns."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    _check_user_path(make_mesh(8, mp=1), dense_cols=None)
+
+
+def _check_user_path(mesh, dense_cols):
     from scipy import sparse as sps
 
     import tabmat_tpu as tm
@@ -232,57 +192,19 @@ def test_user_path_sharded_irls(mesh):
 
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    sharded = design.shard(mesh, rows="dp", dense_cols=dense_cols)
+    # every shard of the dense block lives on its own device
+    held = {s.device for s in sharded.blocks[0].arrays["X"].addressable_shards}
+    assert len(held) == 8
     rows = lambda x: jax.device_put(x, NamedSharding(mesh, P("dp")))  # noqa: E731
     with mesh:
         got = irls_step(
-            design.shard(mesh, rows="dp", dense_cols="mp"),
+            sharded,
             rows(y),
             rows(w),
             jax.device_put(b0, NamedSharding(mesh, P())),
             family="poisson",
             n_cg=5,
-            inner_precision="float64",
-        )
-        got.block_until_ready()
-    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-8, atol=1e-10)
-
-
-def test_user_path_two_level_mesh():
-    """Row shards over a two-level ("dcn", "dp") mesh match single-device."""
-    import tabmat_tpu as tm
-    from tabmat_tpu.glm import irls_step
-    from tabmat_tpu.parallel.design import DeviceDesign
-    from tabmat_tpu.parallel.mesh import make_mesh_2level
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    mesh2 = make_mesh_2level(dcn=2, dp=4, mp=1)
-    rng = np.random.default_rng(22)
-    n, kc = 512, 7
-    cm = tm.CategoricalMatrix(
-        rng.integers(0, kc, n).astype(np.int32), categories=np.arange(kc)
-    )
-    design = DeviceDesign.from_matrix(cm)
-    y = jnp.asarray(rng.poisson(1.0, n).astype(np.float64))
-    w = jnp.ones(n, dtype=jnp.float64)
-    b0 = jnp.zeros(kc, dtype=jnp.float64)
-    ref = np.asarray(
-        irls_step(design, y, w, b0, family="poisson", n_cg=4, inner_precision="float64")
-    )
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    rows = lambda x: jax.device_put(  # noqa: E731
-        x, NamedSharding(mesh2, P(("dcn", "dp")))
-    )
-    with mesh2:
-        got = irls_step(
-            design.shard(mesh2, rows=("dcn", "dp")),
-            rows(y),
-            rows(w),
-            jax.device_put(b0, NamedSharding(mesh2, P())),
-            family="poisson",
-            n_cg=4,
             inner_precision="float64",
         )
         got.block_until_ready()

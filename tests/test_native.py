@@ -1,4 +1,7 @@
-"""Native host-helper tests (counting argsort, is_sorted, combine_codes)."""
+"""Native host-helper tests (counting argsort, is_sorted, combine_codes, build)."""
+
+import os
+import platform
 
 import numpy as np
 import pytest
@@ -91,3 +94,54 @@ def test_sparse_host_walk_class_route():
     vm = np.zeros(21)
     vm[cols] = v[cols]
     np.testing.assert_allclose(out2, -1.0 + D @ vm, rtol=1e-12)
+
+
+def test_library_path_keyed_by_source_flags_and_host(monkeypatch):
+    base = _native.library_path()
+    assert os.path.dirname(base) == _native._BUILD_DIR
+    monkeypatch.setattr(_native, "_FLAGS", _native._FLAGS + ("-DVARIANT",))
+    flagged = _native.library_path()
+    monkeypatch.undo()
+    monkeypatch.setattr(platform, "node", lambda: "some-other-host")
+    moved = _native.library_path()
+    assert len({base, flagged, moved}) == 3
+
+
+def test_portable_flags_only():
+    assert not any(f.startswith("-march") for f in _native._FLAGS)
+
+
+def test_library_built_elsewhere_is_never_loaded(monkeypatch, tmp_path):
+    """A key mismatch means a rebuild, never loading the old library."""
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(platform, "node", lambda: "host-a")
+    stale = _native.library_path()
+    with open(stale, "wb") as f:
+        f.write(b"not a shared library")
+    monkeypatch.setattr(platform, "node", lambda: "host-b")
+    monkeypatch.setenv("TABMAT_TPU_NO_NATIVE_BUILD", "1")
+    assert _native._load() is None  # the host-a file is not touched
+    assert os.listdir(tmp_path) == [os.path.basename(stale)]
+
+
+def test_rebuild_when_key_differs(monkeypatch, tmp_path):
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(platform, "node", lambda: "fresh-host")
+    monkeypatch.delenv("TABMAT_TPU_NO_NATIVE_BUILD", raising=False)
+    lib = _native._load()
+    if lib is None:  # no compiler on this host: the numpy fallbacks serve
+        pytest.skip("no C++ compiler")
+    assert os.path.exists(_native.library_path())
+    assert os.path.dirname(_native.library_path()) == str(tmp_path)
+    keys = np.array([2, 0, 1, 0], dtype=np.int32)
+    perm, bounds = _native.counting_argsort(keys, 3)
+    np.testing.assert_array_equal(perm, [1, 3, 2, 0])
+    np.testing.assert_array_equal(bounds, [0, 2, 3, 4])
+
+
+def test_build_dir_is_git_ignored():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert "tabmat_tpu/_native/build/" in f.read().split()

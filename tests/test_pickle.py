@@ -1,7 +1,7 @@
 """Pickle round-trips: host containers persist, device mirrors rebuild lazily.
 
 SURVEY §5: the reference's matrices are plain-pickleable (benchmark data is
-pickled matrices); the TPU build keeps host-side state pickleable and
+pickled matrices); this library keeps host-side state pickleable and
 re-uploads device arrays on first use after unpickling.
 """
 
